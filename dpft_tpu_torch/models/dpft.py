@@ -1,0 +1,111 @@
+"""DPFT top-level model: per-view backbone, skiplink, FPN, positional
+embedding, querent, and the iterative fusion decoder with its heads.
+
+Counterpart of dpft_tpu/models/dpft.py, with the same batch contract: for
+every configured input the batch holds ``<input>`` (B, H, W, C) data,
+``label_to_<input>_t`` (B, 4, 4) and ``label_to_<input>_p`` (B, R, 4)
+matrices, and ``<input>_shape`` (B, 3) raw shapes. The output is the head
+dict (class / center / size / angle), float32.
+
+The NHWC inputs are permuted to NCHW at entry; the permuted view keeps
+channels_last memory, which cuDNN convolves directly. With
+``computing.compute_dtype: bfloat16`` the forward runs under autocast:
+parameters stay float32, matmuls and convolutions run in bfloat16, softmax
+and LayerNorm in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence
+
+import torch
+import torch.nn as nn
+
+from dpft_tpu_torch.models.backbones import build_backbone
+from dpft_tpu_torch.models.embeddings import build_embedding
+from dpft_tpu_torch.models.fusers import build_fuser
+from dpft_tpu_torch.models.fusers.mpfusion import ViewFeatures
+from dpft_tpu_torch.models.heads import build_detection_head
+from dpft_tpu_torch.models.layers.common import get_compute_dtype
+from dpft_tpu_torch.models.necks import build_neck
+from dpft_tpu_torch.models.queries import build_querent
+
+
+class DPFT(nn.Module):
+    def __init__(self, inputs: Sequence[str], skiplinks: Dict[str, bool],
+                 backbones: Dict[str, nn.Module], necks: Dict[str, nn.Module],
+                 embeddings: Dict[str, nn.Module], querent: nn.Module,
+                 fuser: nn.Module, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.inputs = list(inputs)
+        self.skiplinks = dict(skiplinks)
+        self.backbones = nn.ModuleDict(backbones)
+        self.necks = nn.ModuleDict(necks)
+        self.embeddings = nn.ModuleDict(embeddings)
+        self.querent = querent
+        self.fuser = fuser
+        self.compute_dtype = compute_dtype
+
+    def features(self, batch: Dict[str, torch.Tensor]) -> List[ViewFeatures]:
+        """Per view: the embedded FPN levels, flattened to (B, Len, C), and
+        their (h, w) shapes in level order."""
+        views = []
+        for name in self.inputs:
+            raw = batch[name].permute(0, 3, 1, 2)  # NHWC -> NCHW view
+            feats = self.backbones[name](raw)
+            if self.skiplinks.get(name, False):
+                feats = {"0": raw, **feats}  # raw data becomes level '0'
+            feats = self.embeddings[name](self.necks[name](feats))
+            shapes = tuple((t.shape[2], t.shape[3]) for t in feats.values())
+            flat = torch.cat([t.permute(0, 2, 3, 1).reshape(
+                t.shape[0], -1, t.shape[1]) for t in feats.values()], dim=1)
+            views.append((flat, shapes))
+        return views
+
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        device = batch[self.inputs[0]].device
+        with torch.autocast(device.type, dtype=self.compute_dtype,
+                            enabled=self.compute_dtype != torch.float32):
+            views = self.features(batch)
+            B = batch[self.inputs[0]].shape[0]
+            out = self.querent(B, device)
+            projection = [(batch[f"label_to_{n}_t"], batch[f"label_to_{n}_p"])
+                          for n in self.inputs]
+            shape = [batch[f"{n}_shape"][:, :2].float() for n in self.inputs]
+            return self.fuser(views, shape, projection, out)
+
+
+def from_config(config: Dict[str, Any]) -> DPFT:
+    """Builds the DPFT module tree from a kradar*.json-style config.
+
+    Sub-configs are merged with the 'computing' section and dispatched by
+    their 'name' string, as in the JAX package.
+    """
+    computing = config.get("computing", {})
+    model = config["model"]
+
+    def merged(sub):
+        return dict(computing | sub)
+
+    head = build_detection_head(model["head"]["name"],
+                                merged(model["head"]))
+    return DPFT(
+        inputs=model["inputs"],
+        skiplinks=model.get("skiplinks", {}),
+        backbones={k: build_backbone(v["name"], merged(v))
+                   for k, v in model.get("backbones", {}).items()},
+        necks={k: build_neck(v["name"], merged(v))
+               for k, v in model.get("necks", {}).items()},
+        embeddings={k: build_embedding(v["name"], merged(v))
+                    for k, v in model.get("embeddings", {}).items()},
+        querent=build_querent(model["querent"]["name"],
+                              merged(model["querent"])),
+        fuser=build_fuser(model["fuser"]["name"], merged(model["fuser"]),
+                          head=head),
+        compute_dtype=get_compute_dtype(computing),
+    )
+
+
+def parameter_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,16 @@
+from typing import Any, Dict
+
+from dpft_tpu_torch.models.queries.data_agnostic import (  # noqa: F401
+    DataAgnosticStaticQueries, build_data_agnostic_query,
+)
+
+
+def build_querent(name: str, config: Dict[str, Any]):
+    """Querent registry."""
+    lname = name.lower()
+    if "agnostic" in lname:
+        return build_data_agnostic_query(name, config)
+    if "learnable" in lname:
+        raise NotImplementedError(
+            "The learnable querent is not ported yet (ROADMAP.md, Queue 1)")
+    raise ValueError(f"Unknown querent: {name}")
