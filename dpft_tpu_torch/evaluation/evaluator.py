@@ -1,14 +1,12 @@
-"""Evaluator: checkpoint restore, export, latency and model size.
+"""Evaluator: checkpoint restore, metrics, export, latency and model size.
 
 Counterpart of dpft_tpu/evaluation/evaluator.py (CentralizedEvaluator). It
-loads a checkpoint, runs the forward over the test loader and hands every
-batch to the K-Radar exporter, then times the forward with CUDA events
-(10 warm-up runs, then ``repetitions`` timed ones) and counts parameters.
-
-Not ported yet: the mAP3D / mGIoU3D metric (it needs ops/boxes.py,
-ops/iou.py and evaluation/metric.py) and the FLOP count; a config that
-asks for a metric raises ``NotImplementedError``. Results go to
-``results.json`` in the log directory instead of TensorBoard.
+loads a checkpoint, runs the forward over the test loader, computes the
+configured metrics (``evaluate.metrics``, averaged over batches) and hands
+every batch to the K-Radar exporter, then times the forward with CUDA
+events (10 warm-up runs, then ``repetitions`` timed ones) and counts
+parameters. Results go to ``results.json`` in the log directory instead of
+TensorBoard. Not ported yet: the FLOP count.
 """
 
 from __future__ import annotations
@@ -22,12 +20,9 @@ import numpy as np
 import torch
 
 from dpft_tpu.evaluation.exporters import build as build_exporter
+from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
 from dpft_tpu_torch.models.dpft import parameter_count
-
-METRIC_TODO = ("the mAP3D / mGIoU3D metric is not ported yet (ROADMAP.md, "
-               "Queue 1 item 7-8: ops/boxes.py, ops/iou.py, "
-               "evaluation/metric.py); set evaluate.metrics to {}")
 
 
 def to_device(tree: Dict[str, Any], device: torch.device
@@ -37,10 +32,12 @@ def to_device(tree: Dict[str, Any], device: torch.device
 
 
 class CentralizedEvaluator:
-    def __init__(self, exporter=None, logging: Optional[str] = None,
+    def __init__(self, metric: Optional[Metric] = None, exporter=None,
+                 logging: Optional[str] = None,
                  config: Optional[Dict[str, Any]] = None,
                  device: Union[str, torch.device, None] = None,
                  repetitions: int = 300, warmup: int = 10):
+        self.metric = metric
         self.export_fn = exporter
         self.logging = logging
         # Fallback model config for checkpoints without a config.json.
@@ -54,12 +51,10 @@ class CentralizedEvaluator:
                     device: Union[str, torch.device, None] = None,
                     **kwargs) -> "CentralizedEvaluator":
         evaluate = config.get("evaluate", {})
-        if evaluate.get("metrics"):
-            raise NotImplementedError(METRIC_TODO)
         exporter = None
         if "exporter" in evaluate:
             exporter = build_exporter(evaluate["exporter"]["name"], config)
-        return cls(exporter=exporter,
+        return cls(metric=build_metric(evaluate), exporter=exporter,
                    logging=config.get("train", {}).get("logging"),
                    config=config, device=device, **kwargs)
 
@@ -68,13 +63,21 @@ class CentralizedEvaluator:
 
     def evaluate_one_epoch(self, model: torch.nn.Module,
                            data_loader: Iterable,
-                           dst: Optional[str] = None) -> None:
-        """Runs the forward over the loader and exports every batch."""
+                           dst: Optional[str] = None) -> Dict[str, float]:
+        """Runs the forward over the loader, exports every batch and
+        returns the metrics averaged over batches."""
         device = next(model.parameters()).device
         sample_step = 0
+        sums: Dict[str, float] = {}
+        n = 0
         with torch.inference_mode():
             for batch, targets in data_loader:
                 out = model(to_device(batch, device))
+                if self.metric is not None:
+                    metrics = self.metric(out, to_device(targets, device))
+                    for k, v in metrics.items():
+                        sums[k] = sums.get(k, 0.0) + float(v)
+                n += 1
                 if self.export_fn is not None and dst is not None:
                     self.export_fn({k: v.cpu().numpy() for k, v in out.items()},
                                    targets, sample_step, dst)
@@ -82,6 +85,7 @@ class CentralizedEvaluator:
                     sample_step += int(np.sum(targets["sample_mask"]))
                 else:
                     sample_step += next(iter(batch.values())).shape[0]
+        return {k: v / max(n, 1) for k, v in sums.items()}
 
     def evaluate_inference_time(self, model: torch.nn.Module,
                                 data_loader: Iterable) -> Dict[str, float]:
@@ -114,8 +118,9 @@ class CentralizedEvaluator:
                                                self.device)
         if self.logging is not None and dst is not None:
             dst = osp.join(dst, timestamp)
-        self.evaluate_one_epoch(model, data_loader, dst)
-        results = {**self.evaluate_inference_time(model, data_loader),
+        metrics = self.evaluate_one_epoch(model, data_loader, dst)
+        results = {**metrics,
+                   **self.evaluate_inference_time(model, data_loader),
                    "Parameters": float(parameter_count(model))}
         if self.logging is not None and dst is not None:
             os.makedirs(dst, exist_ok=True)

@@ -49,7 +49,9 @@ class MSDeformAttn(nn.Module):
             d_model, n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = nn.Linear(d_model, d_model)
-        # (spatial_shapes, device) -> (L, 2) float32 (w, h) table.
+        # (spatial_shapes, device, inference mode) -> (L, 2) float32 (w, h)
+        # table. A tensor made under inference_mode cannot enter autograd,
+        # so a model that serves and then trains keeps one of each.
         self._normalizers = {}
 
     def reset_parameters_seeded(self, gen: torch.Generator) -> None:
@@ -90,7 +92,8 @@ class MSDeformAttn(nn.Module):
             B, N, H, L, P)
 
         # Offsets are normalized by each level's (w, h); locations float32.
-        key = (tuple(spatial_shapes), query.device)
+        key = (tuple(spatial_shapes), query.device,
+               torch.is_inference_mode_enabled())
         normalizer = self._normalizers.get(key)
         if normalizer is None:
             normalizer = torch.tensor([(w, h) for h, w in spatial_shapes],

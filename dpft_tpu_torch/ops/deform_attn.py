@@ -10,9 +10,10 @@ coordinates ``loc * size - 0.5`` (align_corners=False). Corners outside the
 map contribute zero.
 
 ``ms_deform_attn_core`` dispatches on the device of ``value``: a CPU tensor
-takes ``ms_deform_attn_core_plain``, a CUDA tensor the hand-written kernel
-``csrc/msda_fwd.cu`` through ``msda_fwd``. There is no fallback from the
-kernel to the plain version.
+takes ``ms_deform_attn_core_plain`` (PyTorch autograd gives its gradient),
+a CUDA tensor the hand-written kernels through ``MSDAFunction``: forward
+``csrc/msda_fwd.cu`` (``msda_fwd``), backward ``csrc/msda_bwd.cu``
+(``msda_bwd``). There is no fallback from a kernel to the plain version.
 """
 
 from __future__ import annotations
@@ -46,8 +47,29 @@ def ms_deform_attn_core(value: torch.Tensor, spatial_shapes: Shapes,
         return ms_deform_attn_core_plain(value, spatial_shapes,
                                          sampling_locations,
                                          attention_weights)
-    return msda_fwd(value, spatial_shapes, sampling_locations,
-                    attention_weights)
+    return MSDAFunction.apply(value, tuple(map(tuple, spatial_shapes)),
+                              sampling_locations, attention_weights)
+
+
+class MSDAFunction(torch.autograd.Function):
+    """The CUDA kernels as one differentiable op: forward ``msda_fwd``,
+    backward ``msda_bwd`` (gradients of value, locations and attention)."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return msda_fwd(value, spatial_shapes, sampling_locations,
+                        attention_weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, att = ctx.saved_tensors
+        d_value, d_loc, d_att = msda_bwd(
+            value, ctx.spatial_shapes, loc, att,
+            grad_out.to(value.dtype).contiguous())
+        return d_value, None, d_loc, d_att
 
 
 def _sample_level_gather(val: torch.Tensor, h: int, w: int, x: torch.Tensor,
@@ -116,62 +138,110 @@ def ms_deform_attn_core_plain(value: torch.Tensor, spatial_shapes: Shapes,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
-             sampling_locations: torch.Tensor,
-             attention_weights: torch.Tensor) -> torch.Tensor:
-    """Launches the CUDA kernel ``csrc/msda_fwd.cu`` (forward only).
-
-    value and attention_weights are float32 or bfloat16 (the same one),
-    sampling_locations float32; all contiguous on one CUDA device. The
-    output has the value dtype. Inputs that require grad raise: the
-    backward kernel comes with training.
-    """
-    tensors = (value, sampling_locations, attention_weights)
-    if any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "msda_fwd is forward-only; run it under torch.no_grad() or "
-            "torch.inference_mode()")
+def _check_inputs(name: str, value: torch.Tensor, spatial_shapes: Shapes,
+                  sampling_locations: torch.Tensor,
+                  attention_weights: torch.Tensor, *extra: torch.Tensor
+                  ) -> Tuple[int, ...]:
+    """Validates the kernels' inputs; returns (B, Len, H, D, N, L, P)."""
+    tensors = (value, sampling_locations, attention_weights, *extra)
     if value.device.type != "cuda":
-        raise RuntimeError(f"msda_fwd needs CUDA tensors, got {value.device}")
+        raise RuntimeError(f"{name} needs CUDA tensors, got {value.device}")
     if any(t.device != value.device for t in tensors):
-        raise RuntimeError("msda_fwd: inputs lie on different devices")
+        raise RuntimeError(f"{name}: inputs lie on different devices")
     if value.dtype not in _DTYPE_CODES:
-        raise TypeError(f"msda_fwd: value dtype {value.dtype} not supported")
-    if attention_weights.dtype != value.dtype:
-        raise TypeError("msda_fwd: attention_weights dtype "
-                        f"{attention_weights.dtype} != value {value.dtype}")
+        raise TypeError(f"{name}: value dtype {value.dtype} not supported")
+    for t in (attention_weights, *extra):
+        if t.dtype != value.dtype:
+            raise TypeError(f"{name}: dtype {t.dtype} != value {value.dtype}")
     if sampling_locations.dtype != torch.float32:
-        raise TypeError("msda_fwd: sampling_locations must be float32")
+        raise TypeError(f"{name}: sampling_locations must be float32")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("msda_fwd: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
     B, Len, H, D = value.shape
     N = sampling_locations.shape[1]
     L = len(spatial_shapes)
     P = sampling_locations.shape[4]
     if tuple(sampling_locations.shape) != (B, N, H, L, P, 2):
-        raise ValueError(f"msda_fwd: locations {tuple(sampling_locations.shape)}"
+        raise ValueError(f"{name}: locations {tuple(sampling_locations.shape)}"
                          f" do not match value {tuple(value.shape)}, L={L}")
     if tuple(attention_weights.shape) != (B, N, H, L, P):
-        raise ValueError(f"msda_fwd: attention {tuple(attention_weights.shape)}"
+        raise ValueError(f"{name}: attention {tuple(attention_weights.shape)}"
                          f" does not match locations")
     if sum(h * w for h, w in spatial_shapes) != Len:
-        raise ValueError(f"msda_fwd: spatial_shapes {list(spatial_shapes)} do "
+        raise ValueError(f"{name}: spatial_shapes {list(spatial_shapes)} do "
                          f"not sum to Len={Len}")
+    return B, Len, H, D, N, L, P
 
+
+def _shape_array(spatial_shapes: Shapes):
+    flat = [s for hw in spatial_shapes for s in hw]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
+             sampling_locations: torch.Tensor,
+             attention_weights: torch.Tensor) -> torch.Tensor:
+    """Launches the CUDA kernel ``csrc/msda_fwd.cu``.
+
+    value and attention_weights are float32 or bfloat16 (the same one),
+    sampling_locations float32; all contiguous on one CUDA device. The
+    output has the value dtype. The result carries no gradient: callers
+    that need one go through ``ms_deform_attn_core`` (``MSDAFunction``).
+    """
+    B, Len, H, D, N, L, P = _check_inputs(
+        "msda_fwd", value, spatial_shapes, sampling_locations,
+        attention_weights)
     lib = kernels.library()
     out = torch.empty((B, N, H * D), dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[s for hw in spatial_shapes for s in hw])
     with torch.cuda.device(value.device):  # the launch uses the current one
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.dpft_msda_fwd(
             value.data_ptr(), sampling_locations.data_ptr(),
             attention_weights.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[value.dtype], B, Len, H, D, N, L, P, shapes, stream)
+            _DTYPE_CODES[value.dtype], B, Len, H, D, N, L, P,
+            _shape_array(spatial_shapes), stream)
     kernels.check(code, "msda_fwd launch")
     msda_fwd.launches += 1
     return out
 
 
-# Number of kernel launches since the last reset (chip_smoke.py reads it to
-# show that the main path went through the kernel).
+def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
+             sampling_locations: torch.Tensor,
+             attention_weights: torch.Tensor, grad_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launches the CUDA kernel ``csrc/msda_bwd.cu``.
+
+    Inputs as for :func:`msda_fwd`, plus ``grad_out`` (B, N, H * D) in the
+    value dtype. Returns ``d_value`` (B, Len, H, D) in the value dtype,
+    ``d_loc`` (B, N, H, L, P, 2) float32 and ``d_att`` (B, N, H, L, P) in
+    the value dtype. ``d_value`` is summed with float32 atomics, into a
+    float32 buffer that is cast once for a bfloat16 value.
+    """
+    B, Len, H, D, N, L, P = _check_inputs(
+        "msda_bwd", value, spatial_shapes, sampling_locations,
+        attention_weights, grad_out)
+    if tuple(grad_out.shape) != (B, N, H * D):
+        raise ValueError(f"msda_bwd: grad_out {tuple(grad_out.shape)} != "
+                         f"{(B, N, H * D)}")
+    lib = kernels.library()
+    d_value = torch.zeros(value.shape, dtype=torch.float32,
+                          device=value.device)
+    d_loc = torch.empty_like(sampling_locations)
+    d_att = torch.empty_like(attention_weights)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.dpft_msda_bwd(
+            value.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), grad_out.data_ptr(),
+            d_value.data_ptr(), d_loc.data_ptr(), d_att.data_ptr(),
+            _DTYPE_CODES[value.dtype], B, Len, H, D, N, L, P,
+            _shape_array(spatial_shapes), stream)
+    kernels.check(code, "msda_bwd launch")
+    msda_bwd.launches += 1
+    return d_value.to(value.dtype), d_loc, d_att
+
+
+# Numbers of kernel launches since the last reset (chip_smoke.py reads them
+# to show that the main path went through the kernels).
 msda_fwd.launches = 0
+msda_bwd.launches = 0

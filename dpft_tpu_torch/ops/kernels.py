@@ -103,6 +103,10 @@ def library() -> ctypes.CDLL:
                                       i32, i32, i32, i32,
                                       ctypes.POINTER(ctypes.c_int), ptr]
         lib.dpft_msda_fwd.restype = i32
+        lib.dpft_msda_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                      i32, i32, i32, i32, i32, i32, i32,
+                                      ctypes.POINTER(ctypes.c_int), ptr]
+        lib.dpft_msda_bwd.restype = i32
         lib.dpft_cuda_error_string.argtypes = [i32]
         lib.dpft_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib

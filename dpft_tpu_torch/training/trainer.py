@@ -1,0 +1,238 @@
+"""Trainer: epoch loop, train step, validation, scalars and checkpoints.
+
+Counterpart of dpft_tpu/training/trainer.py (CentralizedTrainer). One
+train step runs the forward in train mode (BatchNorm batch statistics,
+dropout), matches predictions to targets on the host without gradient
+(``Loss.match``), computes the set loss and, when the loss is above 0 (the
+reference's update gate), runs the backward. With
+``train.accumulate_steps`` k, each step adds loss / k to the gradients and
+every k-th accepted step updates the parameters and steps the
+learning-rate schedule. The per-step metric runs unless
+``train.evaluating`` is -1, which is its default when ``train.logging`` is
+unset.
+
+Every epoch ends with a validation pass (loss and metrics, eval mode) and
+a checkpoint ``{timestamp}_checkpoint_{epoch:04d}.pt`` written by
+``registry.save``; with ``train.save_optimizer`` the optimizer and
+schedule state go beside it (:func:`optimizer_state_path`). Scalars go to
+``<dst>/<timestamp>/scalars.jsonl``, one JSON object per line.
+
+Dropout draws from torch's generator, seeded at the start of every epoch
+from ``computing.seed`` and the epoch, so a resumed run draws what the
+uninterrupted run would have.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import os.path as osp
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import torch
+
+from dpft_tpu_torch.evaluation.evaluator import to_device
+from dpft_tpu_torch.evaluation.metric import Metric, build_metric
+from dpft_tpu_torch.models import registry
+from dpft_tpu_torch.training.loss import Loss
+from dpft_tpu_torch.training.optimizer import (accumulate_steps,
+                                               build_optimizer)
+from dpft_tpu_torch.training.scheduler import (as_step_schedule,
+                                               build_scheduler)
+
+
+def now_timestamp() -> str:
+    return datetime.datetime.now().strftime("%Y%m%d-%H%M%S-%f")[:-3]
+
+
+def checkpoint_path(dst: str, timestamp: str, epoch: int) -> str:
+    return osp.join(dst, timestamp, "checkpoints",
+                    f"{timestamp}_checkpoint_{epoch:04d}.pt")
+
+
+def optimizer_state_path(checkpoint: str) -> str:
+    """Where the optimizer state of a checkpoint lies (save_optimizer)."""
+    return checkpoint[:-len(".pt")] + ".optim.pt"
+
+
+def load_optimizer_state(checkpoint: str) -> Optional[Dict[str, Any]]:
+    """The optimizer state saved beside ``checkpoint``, else None."""
+    path = optimizer_state_path(checkpoint)
+    if not osp.isfile(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+class _Scalars:
+    """Appends scalar records to ``scalars.jsonl`` (or drops them)."""
+
+    def __init__(self, path: Optional[str]):
+        self.path = path
+
+    def write(self, split: str, key: str, index: int,
+              scalars: Dict[str, float]) -> None:
+        if self.path is None:
+            return
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"split": split, key: index, **scalars}) + "\n")
+
+
+def _mean(rows):
+    keys = rows[0].keys() if rows else ()
+    return {k: sum(r[k] for r in rows) / len(rows) for k in keys}
+
+
+class CentralizedTrainer:
+    def __init__(self, epochs: int = 1,
+                 optimizer: Optional[Callable] = None,
+                 loss: Optional[Loss] = None,
+                 scheduler: Optional[Callable[[int], float]] = None,
+                 metric: Optional[Metric] = None,
+                 logging: Optional[str] = None, evaluating: int = 1,
+                 config: Optional[Dict[str, Any]] = None):
+        self.epochs = epochs
+        self.optimizer_factory = optimizer
+        self.loss_fn = loss
+        self.scheduler_factor = scheduler or (lambda epoch: 1.0)
+        self.metric = None if evaluating == -1 else metric
+        self.logging = logging
+        self.config = config or {}
+
+    @classmethod
+    def from_config(cls, config: Dict[str, Any]) -> "CentralizedTrainer":
+        train_cfg = dict(config["train"])
+        opt_cfg = dict(train_cfg["optimizer"])
+        sched_cfg = dict(train_cfg.get("scheduler", {"name": "ConstantLR",
+                                                     "factor": 1.0}))
+        return cls(
+            epochs=train_cfg.get("epochs", 1),
+            optimizer=build_optimizer(opt_cfg.pop("name"), **opt_cfg),
+            loss=Loss.from_config(train_cfg),
+            scheduler=build_scheduler(sched_cfg.pop("name"), **sched_cfg),
+            metric=build_metric(config.get("evaluate", {})),
+            logging=train_cfg.get("logging"),
+            # With logging unset the metric would be computed and dropped.
+            evaluating=train_cfg.get(
+                "evaluating", 1 if train_cfg.get("logging") else -1),
+            config=config,
+        )
+
+    def __call__(self, *args, **kwargs):
+        return self.train(*args, **kwargs)
+
+    def _scalars(self, total, losses, metrics) -> Dict[str, float]:
+        names = ["loss", *(f"loss_{k}" for k in losses), *metrics]
+        values = torch.stack([total.detach(), *(v.detach() for v in
+                                                losses.values()),
+                              *(torch.as_tensor(v, device=total.device)
+                                for v in metrics.values())]).tolist()
+        return dict(zip(names, values))
+
+    def train_step(self, model: torch.nn.Module,
+                   batch: Dict[str, torch.Tensor],
+                   targets: Dict[str, torch.Tensor],
+                   scale: float = 1.0) -> Dict[str, float]:
+        """Forward, matching, loss and (if the loss is above 0) the
+        backward of ``loss * scale``; gradients add up in ``.grad``.
+        Returns the step's scalars."""
+        model.train()
+        out = model(batch)
+        indices = (self.loss_fn.match(out, targets)
+                   if self.loss_fn.use_assigner else None)
+        total, losses = self.loss_fn(out, targets, indices=indices)
+        metrics = self.metric(out, targets) if self.metric else {}
+        scalars = self._scalars(total, losses, metrics)
+        if scalars["loss"] > 0:  # the reference's update gate
+            (total * scale).backward()
+        return scalars
+
+    @torch.no_grad()
+    def eval_step(self, model: torch.nn.Module,
+                  batch: Dict[str, torch.Tensor],
+                  targets: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Eval-mode forward, loss and metrics of one batch."""
+        model.eval()
+        out = model(batch)
+        total, losses = self.loss_fn(out, targets)
+        metrics = self.metric(out, targets) if self.metric else {}
+        return self._scalars(total, losses, metrics)
+
+    def train(self, model: torch.nn.Module, train_loader: Iterable,
+              val_loader: Optional[Iterable] = None, start_epoch: int = 0,
+              timestamp: Optional[str] = None, dst: Optional[str] = None,
+              optimizer_state: Optional[Dict[str, Any]] = None
+              ) -> Dict[str, Any]:
+        """Trains epochs ``start_epoch`` .. ``epochs - 1``.
+
+        Returns {'timestamp', 'history' (mean train loss per epoch),
+        'result' (the last validation means), 'optimizer'}.
+        """
+        timestamp = timestamp or now_timestamp()
+        device = next(model.parameters()).device
+        seed = int(self.config.get("computing", {}).get("seed") or 0)
+        k = accumulate_steps(self.config)
+        steps_per_epoch = max(len(train_loader), 1)
+        optimizer = self.optimizer_factory(model.parameters())
+        scheduler = torch.optim.lr_scheduler.LambdaLR(
+            optimizer, as_step_schedule(self.scheduler_factor,
+                                        steps_per_epoch, every_k=k))
+        if optimizer_state is not None:
+            optimizer.load_state_dict(optimizer_state["optimizer"])
+            scheduler.load_state_dict(optimizer_state["scheduler"])
+        optimizer.zero_grad(set_to_none=True)
+
+        log = _Scalars(None)
+        if dst is not None:
+            os.makedirs(osp.join(dst, timestamp, "checkpoints"),
+                        exist_ok=True)
+            if self.logging is not None:
+                log = _Scalars(osp.join(dst, timestamp, "scalars.jsonl"))
+
+        history, result = [], {}
+        accepted = 0  # gated-in micro-batches since the last update
+        for epoch in range(start_epoch, self.epochs):
+            torch.manual_seed(seed * 100_003 + epoch)
+            epoch_lr = optimizer.param_groups[0]["lr"]
+            rows = []
+            for i, (batch, targets) in enumerate(train_loader):
+                lr = optimizer.param_groups[0]["lr"]  # of this step's update
+                scalars = self.train_step(model, to_device(batch, device),
+                                          to_device(targets, device),
+                                          scale=1.0 / k)
+                if scalars["loss"] > 0:
+                    accepted += 1
+                    if accepted == k:
+                        optimizer.step()
+                        optimizer.zero_grad(set_to_none=True)
+                        scheduler.step()
+                        accepted = 0
+                rows.append(scalars)
+                if self.logging == "step":
+                    log.write("train", "step", epoch * steps_per_epoch + i,
+                              {**scalars, "learning_rate": lr})
+            if rows:
+                history.append(_mean(rows)["loss"])
+                if self.logging == "epoch":
+                    log.write("train", "epoch", epoch,
+                              {**_mean(rows), "learning_rate": epoch_lr})
+
+            if val_loader is not None:
+                val = [self.eval_step(model, to_device(b, device),
+                                      to_device(t, device))
+                       for b, t in val_loader]
+                if val:
+                    result = _mean(val)
+                    if self.logging == "epoch":
+                        log.write("val", "epoch", epoch, result)
+
+            if dst is not None:
+                path = checkpoint_path(dst, timestamp, epoch)
+                registry.save(model, self.config, path)
+                if self.config.get("train", {}).get("save_optimizer"):
+                    torch.save({"optimizer": optimizer.state_dict(),
+                                "scheduler": scheduler.state_dict()},
+                               optimizer_state_path(path))
+        model.eval()
+        return {"timestamp": timestamp, "history": history,
+                "result": result, "optimizer": optimizer}

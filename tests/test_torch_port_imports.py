@@ -3,7 +3,8 @@
 A fresh interpreter imports dpft_tpu_torch and every module under it,
 builds a tiny model on the CPU and runs it; neither ``jax`` nor ``flax``
 may then be in ``sys.modules``. The port may import only the JAX
-package's numpy host modules (config, data, the K-Radar exporter).
+package's numpy host modules (config, data, the K-Radar exporter, the
+native LAP solver).
 """
 
 import json
@@ -79,6 +80,11 @@ def test_port_never_imports_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "dpft_tpu_torch.ops.deform_attn" in report["modules"]
     assert "dpft_tpu_torch.evaluate" in report["modules"]
+    for name in ("train", "training.trainer", "training.loss",
+                 "training.assigner", "training.optimizer",
+                 "training.scheduler", "evaluation.metric", "ops.boxes",
+                 "ops.iou", "ops.hungarian"):
+        assert f"dpft_tpu_torch.{name}" in report["modules"], name
     assert report["leaked"] == []
 
 

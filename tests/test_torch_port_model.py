@@ -9,6 +9,7 @@ must also be the exact inverse of torch_checkpoint.convert_full_model.
 """
 
 import copy
+import json
 import logging
 import os
 import os.path as osp
@@ -275,11 +276,24 @@ def test_device_resolution(monkeypatch):
         registry.build("dprt", config)
 
 
-def test_evaluator_refuses_metrics_until_ported():
+def test_evaluator_refuses_metrics_until_ported(tmp_path):
+    """The metric is ported: a config that asks for one gets it computed
+    and written to results.json (the test keeps its former name)."""
     config = tiny_config()
-    config["evaluate"] = {"metrics": {"mAP": "mAP3D"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CentralizedEvaluator.from_config(config, device="cpu")
+    config["data"] = {"num_classes": 2,
+                      "categories": {"Sedan": 0, "Background": -1}}
+    config["evaluate"] = {"metrics": {"mAP": "mAP3D", "mGIoU": "mGIoU3D"}}
+    config["train"] = {"logging": "epoch"}
+    ckpt = str(tmp_path / "run" / f"{TIMESTAMP}_checkpoint_0001.pt")
+    registry.save(registry.build("dprt", config, device="cpu", seed=4),
+                  config, ckpt)
+    rng = np.random.default_rng(5)
+    loader = _Loader([(make_batch(rng), _targets(config, 0))])
+    results = CentralizedEvaluator.from_config(config, device="cpu")(
+        ckpt, loader, str(tmp_path / "log"))
+    assert np.isfinite(results["mAP"]) and -1.0 <= results["mGIoU"] <= 1.0
+    with open(tmp_path / "log" / TIMESTAMP / "results.json") as f:
+        assert json.load(f)["mAP"] == results["mAP"]
 
 
 def test_pretrained_backbone_weights(tmp_path, caplog):

@@ -105,14 +105,18 @@ def test_core_dispatch_takes_plain_on_cpu():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_grad():
-    """No fallback: the kernel wrapper raises instead of computing."""
+    """No fallback: the kernel wrappers raise on CPU tensors instead of
+    computing, also for inputs that require grad."""
     value, loc, att = _inputs(2, seed=6)
     args = [torch.from_numpy(value), SHAPES, torch.from_numpy(loc),
             torch.from_numpy(att)]
     with pytest.raises(RuntimeError, match="CUDA"):
         port.msda_fwd(*args)
+    grad_out = torch.zeros(2, 7, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.msda_bwd(*args, grad_out)
     args[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         port.msda_fwd(*args)
 
 
