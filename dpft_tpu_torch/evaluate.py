@@ -7,7 +7,8 @@ Counterpart of dpft_tpu/evaluate.py:
 
 ``--device`` defaults to ``cuda``; without a card the run raises. The
 dataset, loader (``pad_last`` with a ``sample_mask``) and K-Radar exporter
-are the JAX package's numpy host modules.
+are the port's own numpy host modules (dpft_tpu_torch/data,
+dpft_tpu_torch/evaluation/exporters).
 """
 
 import argparse
@@ -16,10 +17,10 @@ import random
 import numpy as np
 import torch
 
-from dpft_tpu.data import init as init_dataset
-from dpft_tpu.data import load as load_dataset
-from dpft_tpu.utils.config import load_config
+from dpft_tpu_torch.data import init as init_dataset
+from dpft_tpu_torch.data import load as load_dataset
 from dpft_tpu_torch.evaluation import CentralizedEvaluator
+from dpft_tpu_torch.utils.config import load_config
 
 
 def set_seed(seed: int) -> None:

@@ -19,7 +19,7 @@ from typing import Any, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from dpft_tpu.evaluation.exporters import build as build_exporter
+from dpft_tpu_torch.evaluation.exporters import build as build_exporter
 from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
 from dpft_tpu_torch.models.dpft import parameter_count

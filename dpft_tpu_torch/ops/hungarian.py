@@ -5,7 +5,8 @@ The JAX package solves on the device because a TPU program cannot leave
 the chip cheaply; here the cost matrices of the whole batch cross to the
 host in one copy (B x M x (N + M) floats, about 220 KB at the flagship
 shapes) and the C++ shortest-augmenting-path solver of
-dpft_tpu/ops/lap_native.py (native/lap.cc, numpy only) solves them. For a
+dpft_tpu_torch/ops/lap_native.py (dpft_tpu_torch/csrc/lap.cc, built by g++
+at first use) solves them. For a
 problem with a unique optimum it gives the same assignment as the JAX
 solver and as scipy.
 """
@@ -17,7 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from dpft_tpu.ops import lap_native
+from dpft_tpu_torch.ops import lap_native
 
 _VIRT_COST = 1e9  # dominates any real matching cost
 

@@ -1,16 +1,18 @@
 """Builds and loads the port's CUDA kernels.
 
 Every ``*.cu`` file under ``dpft_tpu_torch/csrc`` is compiled by ``nvcc``,
-in one call, into one shared library with a plain C interface, for Hopper
-(``sm_90a``). The library goes to ``build/kernels/`` in the checkout, under
-a name that carries a hash of the sources and flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is. It is bound with
-``ctypes``: pointers come from ``Tensor.data_ptr()`` and the stream from
+in one call that compiles the files side by side (``--threads 0``), into
+one shared library with a plain C interface, for Hopper (``sm_90a``). The
+library goes to ``build/kernels/`` in the checkout, under a name that
+carries a hash of the sources and flags, so a changed source is rebuilt and
+an unchanged one is loaded as it is. It is bound with ``ctypes``: pointers
+come from ``Tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``.
 
 The sources include no PyTorch header, which keeps a build to seconds.
 Nothing here runs at import time: the first call to :func:`library`
-builds. A missing ``nvcc`` or a failed build raises; nothing falls back.
+builds, under a lock, so the first calls of several threads build once. A
+missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -28,7 +31,7 @@ from typing import Optional
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--threads", "0")
 
 
 @dataclasses.dataclass
@@ -40,6 +43,7 @@ class BuildInfo:
 
 _LIB: Optional[ctypes.CDLL] = None
 _BUILD: Optional[BuildInfo] = None
+_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -92,24 +96,38 @@ def build() -> BuildInfo:
     return _BUILD
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    """Declares the argument and result types of every C entry point."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    shapes = ctypes.POINTER(ctypes.c_int)
+    table = ctypes.POINTER(ctypes.c_float)
+    lib.dpft_msda_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                  i32, i32, i32, i32, shapes, ptr]
+    lib.dpft_msda_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                  i32, i32, i32, i32, i32, i32, i32, shapes,
+                                  ptr]
+    # (cube, raster, out, D, R, E, A, stream)
+    lib.dpft_radar_reduce_ra.argtypes = [ptr, table, ptr, i32, i32, i32, i32,
+                                         ptr]
+    # (cube, raster, scratch, out, D, R, E, A, lo, hi, stream)
+    lib.dpft_radar_reduce_ea.argtypes = [ptr, table, ptr, ptr, i32, i32, i32,
+                                         i32, i32, i32, ptr]
+    for fn in (lib.dpft_msda_fwd, lib.dpft_msda_bwd, lib.dpft_radar_reduce_ra,
+               lib.dpft_radar_reduce_ea):
+        fn.restype = i32
+    lib.dpft_cuda_error_string.argtypes = [i32]
+    lib.dpft_cuda_error_string.restype = ctypes.c_char_p
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _LIB
-    if _LIB is None:
-        info = _BUILD or build()
-        lib = ctypes.CDLL(str(info.path))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.dpft_msda_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                      i32, i32, i32, i32,
-                                      ctypes.POINTER(ctypes.c_int), ptr]
-        lib.dpft_msda_fwd.restype = i32
-        lib.dpft_msda_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                                      i32, i32, i32, i32, i32, i32, i32,
-                                      ctypes.POINTER(ctypes.c_int), ptr]
-        lib.dpft_msda_bwd.restype = i32
-        lib.dpft_cuda_error_string.argtypes = [i32]
-        lib.dpft_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    with _LOCK:
+        if _LIB is None:
+            info = _BUILD or build()
+            lib = ctypes.CDLL(str(info.path))
+            _bind(lib)
+            _LIB = lib
     return _LIB
 
 

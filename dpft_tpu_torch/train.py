@@ -7,7 +7,7 @@ Counterpart of dpft_tpu/train.py:
 
 It builds the train loader (``drop_last`` once the split holds a whole
 batch) and the val loader (``pad_last`` with a ``sample_mask``) from the
-JAX package's numpy data modules, builds the model (or restores it from
+port's own numpy data modules (dpft_tpu_torch/data), builds the model (or restores it from
 ``--checkpoint`` and resumes at the epoch after it, under its timestamp),
 snapshots the config into ``<dst>/<timestamp>/config.json`` and runs the
 trainer. ``--device`` defaults to ``cuda``; without a card the run raises.
@@ -17,12 +17,12 @@ import argparse
 import os.path as osp
 from typing import Optional
 
-from dpft_tpu.data import init as init_dataset
-from dpft_tpu.data import load as load_dataset
-from dpft_tpu.utils.config import load_config, save_config
+from dpft_tpu_torch.data import init as init_dataset
+from dpft_tpu_torch.data import load as load_dataset
 from dpft_tpu_torch.evaluate import set_seed
 from dpft_tpu_torch.models import registry
 from dpft_tpu_torch.training import trainer as trainer_lib
+from dpft_tpu_torch.utils.config import load_config, save_config
 
 
 def main(src: str, cfg: str, dst: str, checkpoint: Optional[str] = None,

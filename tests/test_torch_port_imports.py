@@ -1,10 +1,11 @@
-"""Import guard: the PyTorch port never imports JAX or flax.
+"""Import guard: the PyTorch port never imports JAX, flax or the JAX package.
 
 A fresh interpreter imports dpft_tpu_torch and every module under it,
-builds a tiny model on the CPU and runs it; neither ``jax`` nor ``flax``
-may then be in ``sys.modules``. The port may import only the JAX
-package's numpy host modules (config, data, the K-Radar exporter, the
-native LAP solver).
+builds a tiny model on the CPU and runs it; neither ``jax`` nor ``flax``,
+nor ``dpft_tpu`` or any module under it, nor ``__graft_entry__`` may then
+be in ``sys.modules``. The port keeps its own copies of the numpy host
+modules it needs (config, data, the K-Radar exporter, the LAP binding).
+The source scan covers ``chip_smoke.py`` too.
 """
 
 import json
@@ -67,7 +68,8 @@ with torch.inference_mode():
                  for k, v in batch.items()})
 assert out["class"].shape == (1, 4, 2), out["class"].shape
 print(json.dumps({"modules": names, "leaked": sorted(
-    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))}))
+    m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "dpft_tpu", "__graft_entry__"))}))
 """
 
 
@@ -83,21 +85,55 @@ def test_port_never_imports_jax():
     for name in ("train", "training.trainer", "training.loss",
                  "training.assigner", "training.optimizer",
                  "training.scheduler", "evaluation.metric", "ops.boxes",
-                 "ops.iou", "ops.hungarian"):
+                 "ops.iou", "ops.hungarian", "prepare",
+                 "data.kradar.processor", "ops.radar_reduce", "data.loader",
+                 "utils.config", "utils.device"):
         assert f"dpft_tpu_torch.{name}" in report["modules"], name
     assert report["leaked"] == []
 
 
-def test_port_sources_name_no_jax():
-    """No file of the port imports jax or flax, even lazily."""
+FORBIDDEN = ("jax", "flax", "dpft_tpu", "__graft_entry__")
+
+
+def _offending_imports(path):
+    """Lines of ``path`` that import a forbidden top-level module."""
     offenders = []
+    with open(path) as f:
+        for line in f:
+            words = line.replace(",", " ").split()
+            if words[:1] == ["from"] and len(words) > 1:
+                names = words[1:2]
+            elif words[:1] == ["import"]:
+                names = [w for w in words[1:] if w != "as"]
+            else:
+                continue
+            if any(n.split(".")[0] in FORBIDDEN for n in names):
+                offenders.append(f"{os.path.basename(path)}: {line.strip()}")
+    return offenders
+
+
+def test_port_sources_name_no_jax():
+    """No file of the port, nor chip_smoke.py, imports jax, flax, the JAX
+    package or its ``__graft_entry__`` module, even lazily."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "dpft_tpu_torch")):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(d, name)) as f:
-                    for line in f:
-                        words = line.split()
-                        if words[:1] in (["import"], ["from"]) and \
-                                words[1].split(".")[0] in ("jax", "flax"):
-                            offenders.append(f"{name}: {line.strip()}")
+        paths += [os.path.join(d, n) for n in files if n.endswith(".py")]
+    assert len(paths) > 40
+    offenders = [line for path in paths for line in _offending_imports(path)]
     assert offenders == []
+
+
+def test_source_scan_catches_each_form(tmp_path):
+    path = tmp_path / "sample.py"
+    path.write_text(
+        "import numpy as np\n"
+        "from dpft_tpu_torch.ops import kernels\n"
+        "import dpft_tpu_torch.data\n"
+        "from dpft_tpu.data import init\n"
+        "    from dpft_tpu import utils\n"
+        "import dpft_tpu.ops.lap_native as lap\n"
+        "import os, dpft_tpu\n"
+        "    from __graft_entry__ import _example_batch\n"
+        "import jax.numpy as jnp\n"
+        "from flax import linen\n")
+    assert len(_offending_imports(str(path))) == 7
