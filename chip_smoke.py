@@ -37,9 +37,49 @@ not 0:
    finite losses, changed parameters, validation metrics, one checkpoint
    per epoch, a resume from the epoch-0 checkpoint, and exact launch
    counts of both kernels (counts reset right before, read right after).
+   Expected counts are computed from the model's level shapes.
 9. Train step time by CUDA events at B=4 in f32 and bf16 (mean of 10 steps
    after 3 warm-up steps), the host share of matching, peak memory.
-10. Radar kernels vs plain: ``radar_reduce_ra`` / ``radar_reduce_ea``
+10. Matmul-form kernels vs plain: ``msda_mm_fwd`` against the plain level
+   op ``sample_level_fused_plain`` and ``msda_mm_bwd`` against
+   torch.autograd.grad through it, in float32, at border cases (D = 2, 3;
+   S and the map off the tiles; points on integer coordinates, which must
+   get no coordinate gradient; points at +-1e9, which must add exactly 0)
+   and at every flagship level of all three views (forward at B=1,
+   backward at B=4, N=400): f32 within 1e-5 / 1e-4 of the largest element
+   (sums in another order), bf16 within 2e-2 / 5e-2; ``msda_mm_bwd`` run
+   twice gives bit-equal d_val. Then a table of times per level: the mm
+   kernels, kernel #1 (``msda_fwd`` / ``msda_bwd``) on that one level,
+   ``grid_sample`` times att (the one PyTorch call that computes the level
+   op; the port never calls it), the plain version and the bound; the
+   three are first held to compute the same function. The camera's 512x910
+   level, which stays in gather form under "mm", is in the table too.
+   Then one MSDA call of each view through ``ms_deform_attn_core``: under
+   "mm", where the kernels work in place on strided views of one level of
+   ``value``, the output and the gradients by autograd are held against
+   the plain hybrid core at B=1 and B=4 in float32 (1e-5 / 1e-4 of the
+   largest element, d_value of the matmul levels bit-equal twice); then
+   both backends by CUDA events and by the host's clock.
+11. mm model vs default model (run right after phase 7, on the same initial
+   weights): config/kradar.json with ``fuser.pallas_msda: "mm"`` set in the
+   loaded dict and the default model's weights; the B=1 f32 forward within
+   1e-4, one B=4 train step with the loss within 1e-4 (relative) and every
+   parameter gradient within 1e-3 of its largest, against the same model
+   on the plain hybrid core and against the default model.
+12. Serve path under "mm" (the fourth main path): as phase 5 with the mm
+   model; ``msda_mm_fwd`` exactly once per level up to the cutoff and
+   ``msda_fwd`` once per level above it, per view, iteration and forward.
+13. Train path under "mm" (the fifth main path): CentralizedTrainer for 1
+   epoch of 2 B=4 steps and a validation batch, exact counts of all four
+   MSDA kernels. Then the times of phases 4 and 9 under "mm"; the train
+   step of phase 11 once more on the weights that the train phases have
+   updated, each model twice, on its plain core and with the points on exactly integer pixel coordinates taken out of the
+   coordinate gradient: there the matmul form's derivative is 0 and the
+   gather form's one-sided, so the two forms differ by design (reported,
+   not held); and, after every timed phase, the
+   kernels, copies and memsets that one forward of the default and of the
+   mm model puts on the card (torch.profiler).
+14. Radar kernels vs plain: ``radar_reduce_ra`` / ``radar_reduce_ea``
    against ``reduce_tesseract_plain`` on the card at four small cubes and
    at K-Radar's (64, 256, 37, 107), positive powers from a numpy seed,
    rtol 3e-4 / atol 3e-2 (float32 sums in another order) channel by
@@ -50,7 +90,7 @@ not 0:
    the numpy transliteration on the host. Times by CUDA events: each
    kernel, the plain version, the copy of one cube to the card from
    pageable and from pinned memory, each beside its bound.
-11. Prepare path (the third main path): a raw K-Radar tree of ten frames
+15. Prepare path (the third main path): a raw K-Radar tree of ten frames
    (eight train, one val, one test) at K-Radar's shapes is written to a
    temporary directory, then
    ``dpft_tpu_torch.prepare.main`` runs on it with config/kradar.json on
@@ -62,14 +102,19 @@ not 0:
    model. Printed: frames per second, the peak device memory of the run
    (eight workers hold a cube each) and the per-frame split.
 
-The kernel report gives, for every kernel, its launches on the three main
+The kernel report gives, for every kernel, its launches on the five main
 paths, its error against the plain version, its time, the plain version's,
 and ``bound_ms``: the least time the card could take, the larger of the
 bytes the function must move (every input read once, every output written
 once; for MSDA only the 32-byte sectors of the value map that this run's
 sampling points touch) over 3.35 TB/s and its float32 operations over
-67 TFLOP/s. ``library_ms`` is null: no single PyTorch call computes MSDA or
-either radar plane.
+67 TFLOP/s. For the matmul-form kernels these are the operations of the
+function, bilinear sampling of the points, as for kernel #1; the dense
+products that the form itself computes are printed apart, in the per-level
+lines.
+``library_ms`` is ``grid_sample`` times att for the matmul-form kernels
+(camera 128x228 level) and null elsewhere: no single PyTorch call computes
+multi-level MSDA or either radar plane.
 
 The last two lines are the kernel report and the result:
     {"kernels": [...]}
@@ -97,7 +142,13 @@ B_TRAIN = 4  # train.batch_size of config/kradar.json
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 REPS = 20  # timed forwards of the evaluator's latency phase
-CALLS = 12  # MSDA calls per forward: 4 iterations x 3 views
+KERNELS = ("msda_fwd", "msda_bwd", "msda_mm_fwd", "msda_mm_bwd",
+           "radar_reduce_ra", "radar_reduce_ea")
+# Matmul-form border cases (BH, h, w, D, S, placement of the points): odd
+# head dims, S off the 64-sample tile, maps off the 64 x 64 tiles, points on
+# integer coordinates and at +-1e9.
+MM_CASES = ((3, 7, 5, 3, 150, "integer"), (3, 7, 5, 2, 150, "far"),
+            (2, 70, 33, 2, 131, "random"), (2, 5, 100, 3, 64, "integer"))
 
 # Published peaks of one H100 SXM: device memory rate and float32 rate
 # outside the tensor cores.
@@ -162,6 +213,7 @@ def _kernel_wrappers():
     from dpft_tpu_torch.ops import radar_reduce as rr
 
     return {"msda_fwd": da.msda_fwd, "msda_bwd": da.msda_bwd,
+            "msda_mm_fwd": da.msda_mm_fwd, "msda_mm_bwd": da.msda_mm_bwd,
             "radar_reduce_ra": rr.radar_reduce_ra,
             "radar_reduce_ea": rr.radar_reduce_ea}
 
@@ -173,6 +225,39 @@ def _reset_launches():
 
 def _read_launches():
     return {name: w.launches for name, w in _kernel_wrappers().items()}
+
+
+def _expected_launches(config, view_shapes, forwards, steps):
+    """Launches of every kernel over ``forwards`` model forwards of which
+    ``steps`` are followed by a backward, from the model's level shapes:
+    under "mm" one ``msda_mm_*`` launch per level up to the cutoff and one
+    of kernel #1 per level above it, per view and fusion iteration; else
+    one launch of kernel #1 per view and iteration."""
+    from dpft_tpu_torch.models.fusers.mpfusion import msda_backend_from_config
+    from dpft_tpu_torch.ops.deform_attn import _MATMUL_MAX_HW
+
+    fuser = config["model"]["fuser"]
+    levels = [hw for shapes in view_shapes.values() for hw in shapes]
+    if msda_backend_from_config(fuser) == "mm":
+        mm = sum(h + w <= _MATMUL_MAX_HW for h, w in levels)
+        gather = len(levels) - mm
+    else:
+        mm, gather = 0, len(view_shapes)
+    per = {"msda_fwd": (gather, forwards), "msda_bwd": (gather, steps),
+           "msda_mm_fwd": (mm, forwards), "msda_mm_bwd": (mm, steps)}
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update({k: fuser["i_iter"] * n * times
+                     for k, (n, times) in per.items()})
+    return expected
+
+
+def _plain_core(value, shapes, loc, att, backend="gather"):
+    """The plain PyTorch version of the layer's MSDA core."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    plain = (da.ms_deform_attn_core_mm_plain if backend == "mm"
+             else da.ms_deform_attn_core_plain)
+    return plain(value, shapes, loc, att)
 
 
 def phase_device():
@@ -317,7 +402,7 @@ def phase_flagship(config, model):
     with torch.inference_mode():
         out = model(batch)
         # The same model with the plain core, swapped in this process only.
-        msda_layer.ms_deform_attn_core = da.ms_deform_attn_core_plain
+        msda_layer.ms_deform_attn_core = _plain_core
         try:
             ref = model(batch)
         finally:
@@ -335,7 +420,16 @@ def phase_flagship(config, model):
                                  f"max abs err {err:.3e} exceeds 1e-4")
         print(f"[flagship] B=1 f32 {key} {tuple(got.shape)} finite, kernel "
               f"vs plain core max_abs_err={err:.3e} (tol 1e-4) ok")
+    _time_forwards(config, model, "flagship")
 
+
+def _time_forwards(config, model, label):
+    """Latency (CUDA events) and peak memory of the forward at B=1 and B=4
+    in f32 and bf16. The peak counts whatever else is held on the card."""
+    from dpft_tpu_torch.utils.example import example_batch
+
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    model.eval()
     for dtype in (torch.float32, torch.bfloat16):
         model.compute_dtype = dtype
         for B in (1, 4):
@@ -347,9 +441,41 @@ def phase_flagship(config, model):
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             if not all(torch.isfinite(v).all() for v in out.values()):
                 raise AssertionError(f"non-finite outputs at B={B} {dtype}")
-            print(f"[flagship] B={B} {str(dtype)[6:]}: {ms:.3f} ms/batch, "
-                  f"{ms / B:.3f} ms/frame, peak memory {peak:.3f} GiB")
+            print(f"[{label}] B={B} {str(dtype)[6:]}: {ms:.3f} ms/batch, "
+                  f"{ms / B:.3f} ms/frame, peak memory {peak:.3f} GiB "
+                  f"({held:.3f} GiB held before)")
     model.compute_dtype = torch.float32
+
+
+def phase_launch_counts(config, models):
+    """Kernels, copies and memsets that one forward puts on the card, for
+    each of ``models`` (label -> model), counted by torch.profiler. It runs
+    after every timed phase: once the profiler has been used, its tracing
+    stays attached and every later launch costs the host more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpft_tpu_torch.utils.example import example_batch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 4):
+            batch = _to_cuda(example_batch(config, B=B, cam_hw=(512, 910)))
+            counts = {}
+            for label, model in models.items():
+                model.eval()
+                model.compute_dtype = dtype
+                with torch.inference_mode():
+                    model(batch)
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        model(batch)
+                        torch.cuda.synchronize()
+                model.compute_dtype = torch.float32
+                n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                        for e in prof.events())
+                counts[label] = n or "not measured"
+            print(f"[launches] B={B} {str(dtype)[6:]}: device launches per "
+                  f"forward {counts}")
 
 
 class _Loader:
@@ -375,7 +501,7 @@ class _Loader:
         return iter(self.batches)
 
 
-def phase_serve(config, model):
+def phase_serve(config, model, view_shapes, label="serve"):
     """The serving path; returns its launches of every kernel."""
     from dpft_tpu_torch.evaluation import CentralizedEvaluator
     from dpft_tpu_torch.models import registry
@@ -395,14 +521,14 @@ def phase_serve(config, model):
             if not os.path.isfile(os.path.join(tree, "0.0", "all", sub,
                                                "000001.txt")):
                 raise AssertionError(f"exporter wrote no {sub}/000001.txt")
-    # 2 batches + warm-up + timed forwards, 4 iterations x 3 views each;
-    # serving runs no backward and reduces no radar cube.
-    expected = {"msda_fwd": (2 + evaluator.warmup + REPS) * 12,
-                "msda_bwd": 0, "radar_reduce_ra": 0, "radar_reduce_ea": 0}
+    # 2 batches + warm-up + timed forwards; serving runs no backward and
+    # reduces no radar cube.
+    expected = _expected_launches(config, view_shapes,
+                                  2 + evaluator.warmup + REPS, 0)
     if launches != expected:
-        raise AssertionError(f"the serving path launched {launches}, "
+        raise AssertionError(f"the {label} path launched {launches}, "
                              f"expected {expected}")
-    print(f"[serve] save -> load -> evaluate -> export: {len(files)} files; "
+    print(f"[{label}] save -> load -> evaluate -> export: {len(files)} files; "
           f"results {json.dumps(results)}; launches {launches}")
     return launches
 
@@ -489,6 +615,43 @@ def _cuda_batch(config, seed):
             _to_cuda(example_targets(config, B=B_TRAIN, seed=seed)))
 
 
+def _step_loss_and_grads(trainer, model, batch, targets):
+    model.zero_grad(set_to_none=True)
+    torch.manual_seed(3)  # the same dropout masks
+    loss = trainer.train_step(model, batch, targets)["loss"]
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss, grads
+
+
+def _compare_steps(what, against, step, ref_step, tol=1e-3):
+    """Holds one train step against a reference step: the loss within 1e-4
+    (relative), every parameter gradient within ``tol`` of its largest
+    (``tol=None``: the gradients are only reported)."""
+    (loss, grads), (ref_loss, ref_grads) = step, ref_step
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    if not (math.isfinite(loss) and loss_err <= 1e-4):
+        raise AssertionError(f"train step loss {loss} vs {against} "
+                             f"{ref_loss}: relative err {loss_err:.3e}")
+    if set(grads) != set(ref_grads):
+        raise AssertionError(f"{what} and {against} steps reach different "
+                             "parameters")
+    worst = (0.0, "")
+    for k, g in grads.items():
+        ref = ref_grads[k]
+        err = ((g - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, (err, k))
+    if not (math.isfinite(worst[0]) and (tol is None or worst[0] <= tol)):
+        raise AssertionError(f"{what} vs {against}: gradient of {worst[1]}: "
+                             f"err {worst[0]:.3e} of its max exceeds {tol}")
+    held = "reported, not held" if tol is None else f"tol {tol}"
+    print(f"[train] B={B_TRAIN} f32 step, {what} vs {against}: "
+          f"loss {loss:.6f} vs {ref_loss:.6f} (rel err {loss_err:.3e}, tol "
+          f"1e-4); {len(grads)} gradients, worst {worst[0]:.3e} of its max "
+          f"at {worst[1]} ({held}) ok")
+
+
 def phase_train_step_vs_plain(config, model):
     """One train step of the kernel model against the plain-core model."""
     import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
@@ -497,50 +660,25 @@ def phase_train_step_vs_plain(config, model):
 
     trainer = CentralizedTrainer.from_config(config)
     batch, targets = _cuda_batch(config, seed=20)
-    results = []
-    for core in (da.ms_deform_attn_core, da.ms_deform_attn_core_plain):
-        msda_layer.ms_deform_attn_core = core
-        try:
-            model.zero_grad(set_to_none=True)
-            torch.manual_seed(3)  # the same dropout masks
-            loss = trainer.train_step(model, batch, targets)["loss"]
-        finally:
-            msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
-        results.append((loss, {k: p.grad.clone() for k, p in
-                               model.named_parameters()
-                               if p.grad is not None}))
-    model.zero_grad(set_to_none=True)
-    (loss, grads), (ref_loss, ref_grads) = results
-    loss_err = abs(loss - ref_loss) / abs(ref_loss)
-    if not (math.isfinite(loss) and loss_err <= 1e-4):
-        raise AssertionError(f"train step loss {loss} vs plain core "
-                             f"{ref_loss}: relative err {loss_err:.3e}")
-    if set(grads) != set(ref_grads):
-        raise AssertionError("kernel and plain-core steps reach different "
-                             "parameters")
-    worst = (0.0, "")
-    for k, g in grads.items():
-        ref = ref_grads[k]
-        err = ((g - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
-        if not err <= 1e-3:
-            raise AssertionError(f"gradient of {k}: err {err:.3e} of its max "
-                                 "exceeds 1e-3")
-        worst = max(worst, (err, k))
-    print(f"[train] B={B_TRAIN} f32 step, kernel model vs plain-core model: "
-          f"loss {loss:.6f} vs {ref_loss:.6f} (rel err {loss_err:.3e}, tol "
-          f"1e-4); {len(grads)} gradients, worst {worst[0]:.3e} of its max "
-          f"at {worst[1]} (tol 1e-3) ok")
+    step = _step_loss_and_grads(trainer, model, batch, targets)
+    msda_layer.ms_deform_attn_core = _plain_core
+    try:
+        ref_step = _step_loss_and_grads(trainer, model, batch, targets)
+    finally:
+        msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+    _compare_steps("kernel model", "plain-core model", step, ref_step)
 
 
-def phase_train(config, model):
+def phase_train(config, model, view_shapes, label="train", epochs=2,
+                n_train=4, n_val=2, resume=True):
     """The train path; returns its launches of every kernel."""
     from dpft_tpu_torch.models import registry
     from dpft_tpu_torch.training import CentralizedTrainer
 
     config = json.loads(json.dumps(config))
-    config["train"]["epochs"] = 2
-    train_loader = _Loader(config, B=B_TRAIN, n=4, seed=30)
-    val_loader = _Loader(config, B=B_TRAIN, n=2, seed=40)
+    config["train"]["epochs"] = epochs
+    train_loader = _Loader(config, B=B_TRAIN, n=n_train, seed=30)
+    val_loader = _Loader(config, B=B_TRAIN, n=n_val, seed=40)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     with tempfile.TemporaryDirectory() as dst:
         trainer = CentralizedTrainer.from_config(config)
@@ -548,18 +686,16 @@ def phase_train(config, model):
         run = trainer(model, train_loader, val_loader, dst=dst,
                       timestamp="2026-01-01-00-00-00")
         launches = _read_launches()
-        steps = 2 * len(train_loader.batches)
-        val = 2 * len(val_loader.batches)
-        expected = {"msda_fwd": CALLS * (steps + val),
-                    "msda_bwd": CALLS * steps,
-                    "radar_reduce_ra": 0, "radar_reduce_ea": 0}
+        steps = epochs * n_train
+        val = epochs * n_val
+        expected = _expected_launches(config, view_shapes, steps + val, steps)
         if launches != expected:
-            raise AssertionError(f"the train path launched {launches}, "
+            raise AssertionError(f"the {label} path launched {launches}, "
                                  f"expected {expected}")
         with open(os.path.join(dst, run["timestamp"], "scalars.jsonl")) as f:
             rows = [json.loads(line) for line in f]
         losses = [r["loss"] for r in rows]
-        if not (all(map(math.isfinite, losses)) and len(rows) == 4):
+        if not (all(map(math.isfinite, losses)) and len(rows) == 2 * epochs):
             raise AssertionError(f"train scalars: {rows}")
         for key in ("mAP", "mGIoU"):
             if not math.isfinite(run["result"].get(key, math.nan)):
@@ -570,14 +706,16 @@ def phase_train(config, model):
             raise AssertionError("training changed no parameter")
         ckpts = [os.path.join(dst, run["timestamp"], "checkpoints",
                               f"{run['timestamp']}_checkpoint_{e:04d}.pt")
-                 for e in range(2)]
+                 for e in range(epochs)]
         if not all(map(os.path.isfile, ckpts)):
             raise AssertionError(f"missing checkpoints: {ckpts}")
-        print(f"[train] CentralizedTrainer 2 epochs x {steps // 2} steps + "
-              f"{val // 2} val batches, B={B_TRAIN} f32: losses "
+        print(f"[{label}] CentralizedTrainer {epochs} epochs x {n_train} "
+              f"steps + {n_val} val batches, B={B_TRAIN} f32: losses "
               f"{[round(x, 4) for x in losses]}; val {json.dumps(run['result'])}"
               f"; {changed} state tensors changed; checkpoints written; "
               f"launches {launches}")
+        if not resume:
+            return launches
 
         # Resume from the epoch-0 checkpoint: one more epoch.
         resumed, _, epoch, timestamp = registry.load(ckpts[0], config,
@@ -587,7 +725,7 @@ def phase_train(config, model):
             resumed, train_loader, val_loader, start_epoch=epoch + 1,
             timestamp=timestamp, dst=dst)
         resume_launches = _read_launches()
-        want = {k: v // 2 for k, v in expected.items()}
+        want = {k: v // epochs for k, v in expected.items()}
         if resume_launches != want or len(again["history"]) != 1:
             raise AssertionError(f"resume launched {resume_launches} over "
                                  f"{len(again['history'])} epochs, expected "
@@ -598,7 +736,7 @@ def phase_train(config, model):
     return launches
 
 
-def phase_train_timing(config, model):
+def phase_train_timing(config, model, label="train"):
     """Step time, host share of matching and peak memory at B=4."""
     from dpft_tpu_torch.training import CentralizedTrainer
 
@@ -639,12 +777,503 @@ def phase_train_timing(config, model):
                 host.clear()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         share = sum(host[-10:]) / sum(walls)
-        print(f"[train] B={B_TRAIN} {str(dtype)[6:]} step (forward, matching,"
+        print(f"[{label}] B={B_TRAIN} {str(dtype)[6:]} step (forward, matching,"
               f" loss, metric, backward, AdamW): {np.mean(times):.3f} ms "
               f"(std {np.std(times):.3f}, 10 steps by CUDA events); matching "
               f"on the host {1e3 * np.mean(host[-10:]):.3f} ms = "
               f"{100 * share:.1f}% of the step; peak memory {peak:.3f} GiB")
     model.compute_dtype = torch.float32
+
+
+def _mm_level_inputs(BH, h, w, D, S, dtype, seed, case="random"):
+    """One level's val, x, y, att and grad_out on the card from a numpy
+    seed, and the normalized locations (2, BH, S) that x and y come from:
+    x = loc_x * w - 0.5 in float32, as the model computes it."""
+    rng = np.random.default_rng(seed)
+    val = torch.tensor(rng.normal(size=(BH, h, w * D)), dtype=dtype,
+                       device="cuda")
+    loc = rng.uniform(-0.2, 1.2, size=(2, BH, S)).astype(np.float32)
+    if case == "integer":
+        # A third of the points on integer x, another third on integer y,
+        # from the border line -1 to the border line size.
+        loc[0, :, ::3] = (rng.integers(-1, w + 1, size=loc[0, :, ::3].shape)
+                          + 0.5) / w
+        loc[1, :, 1::3] = (rng.integers(-1, h + 1, size=loc[1, :, 1::3].shape)
+                           + 0.5) / h
+    loc = torch.from_numpy(loc).cuda()
+    x, y = loc[0] * w - 0.5, loc[1] * h - 0.5
+    if case == "integer" and not ((x == x.round()).any()
+                                  and (y == y.round()).any()):
+        raise AssertionError("no point on an integer coordinate")
+    if case == "far":
+        x[:, :5], y[:, 3:9] = 1e9, -1e9
+    att = torch.tensor(rng.uniform(size=(BH, S)), dtype=dtype, device="cuda")
+    grad = torch.tensor(rng.normal(size=(BH, S, D)), dtype=dtype,
+                        device="cuda")
+    return (val, x.contiguous(), y.contiguous(), att, grad), loc
+
+
+def _plain_level(val, x, y, att, grad, h, w):
+    """The plain level op in float32 and its gradients by autograd."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    args = [t.detach().float().requires_grad_(True)
+            for t in (val, x, y, att)]
+    out = da.sample_level_fused_plain(*args, h, w)
+    return out.detach(), torch.autograd.grad(out, args, grad.float())
+
+
+def _hold(what, got, want, tol):
+    """max abs err of ``got`` against ``want``, held to ``tol`` times the
+    largest element of ``want``."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max abs err {err:.3e} exceeds {tol} "
+                             f"of the largest element {scale:.3e}")
+    return err
+
+
+def _mm_check(what, inputs, h, w, backward):
+    """``msda_mm_fwd`` (and ``msda_mm_bwd``, run twice) against the plain
+    level op in float32; returns the float32-relevant max abs errs."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    val, x, y, att, grad = inputs
+    dtype = val.dtype
+    want, want_grads = _plain_level(*inputs, h, w)
+    out = da.msda_mm_fwd(val, x, y, att, h, w)
+    torch.cuda.synchronize()
+    if out.dtype != dtype:
+        raise AssertionError(f"{what}: out is {out.dtype}")
+    errs = [_hold(f"msda_mm_fwd {what}", out, want, TOL[dtype])]
+    if backward:
+        got = da.msda_mm_bwd(val, x, y, att, grad, h, w)
+        again = da.msda_mm_bwd(val, x, y, att, grad, h, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], again[0]):
+            raise AssertionError(f"msda_mm_bwd {what}: d_val differs between "
+                                 "two runs on the same inputs")
+        for name, g, wg in zip(("d_val", "d_x", "d_y", "d_att"), got,
+                               want_grads):
+            if g.dtype != (torch.float32 if name in ("d_x", "d_y")
+                           else dtype):
+                raise AssertionError(f"msda_mm_bwd {what} {name}: {g.dtype}")
+            errs.append(_hold(f"msda_mm_bwd {what} {name}", g,
+                              wg.reshape(g.shape), BWD_TOL[dtype]))
+    return errs
+
+
+def _mm_bounds(BH, h, w, D, S, itemsize=4):
+    """Bounds of one level's op, forward and backward: ``(bound, dense_ms)``
+    each. The bound is what the function needs, whatever form computes it:
+    val, x, y, att and the output moved once (backward: also grad_out,
+    d_val, d_x, d_y, d_att), or the sampling operations, 10 per corner and
+    channel forward and 30 backward as for kernel #1. ``dense_ms`` is the
+    floor of the matmul form's own design, not of the function: its dense
+    float32 products, 2*S*h*w*D operations per batch-head plus the
+    contraction with Ax (three such products and row sums backward), at
+    the card's peak rate."""
+    small = BH * S * (2 * 4 + itemsize)            # x, y, att
+    plane = BH * h * w * D * itemsize
+    out = BH * S * D * itemsize
+    corners = 4 * BH * S * D
+    dense = 2 * BH * S * h * w * D + 2 * BH * S * w * D
+    return ((_bound(plane + small + out, 10 * corners),
+             1e3 * dense / PEAK_F32_FLOPS),
+            (_bound(2 * plane + 2 * small + out, 30 * corners),
+             3e3 * dense / PEAK_F32_FLOPS))
+
+
+def _one_level_msda(inputs, loc, h, w, B):
+    """The same level and points in the layout of kernel #1: value
+    (B, h*w, H, D), loc (B, N, H, 1, P, 2), att (B, N, H, 1, P), grad_out
+    (B, N, H*D) (one gradient per query, so the sum over points is part of
+    it)."""
+    val, _, _, att, grad = inputs
+    H, N, P = HEADS, N_QUERIES, POINTS
+    D = val.shape[-1] // w
+    value = val.view(B, H, h * w, D).permute(0, 2, 1, 3).contiguous()
+    loc = loc.view(2, B, H, N, P).permute(1, 3, 2, 4, 0).unsqueeze(
+        3).contiguous()
+    att = att.view(B, H, N, P).permute(0, 2, 1, 3).unsqueeze(3).contiguous()
+    grad = grad.view(B, H, N, P, D)[:, :, :, 0].permute(
+        0, 2, 1, 3).reshape(B, N, H * D).contiguous()
+    return value, loc, att, grad
+
+
+def _grid_sample_level(val, loc, att, h, w):
+    """``grid_sample`` (bilinear, zeros, align_corners=False) times att: the
+    one PyTorch call that computes the level op. Timed only."""
+    BH, S = att.shape
+    D = val.shape[-1] // w
+    image = val.view(BH, h, w, D).permute(0, 3, 1, 2)
+    grid = (2.0 * loc - 1.0).permute(1, 2, 0).unsqueeze(2)   # (BH, S, 1, 2)
+    out = torch.nn.functional.grid_sample(
+        image, grid.to(val.dtype), mode="bilinear", padding_mode="zeros",
+        align_corners=False)                                 # (BH, D, S, 1)
+    return out[..., 0].transpose(1, 2) * att[..., None]
+
+
+def phase_mm_vs_plain(view_shapes):
+    """The matmul-form kernels against the plain level op, and the
+    per-level table. Returns the reports of msda_mm_fwd and msda_mm_bwd."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    H, D, S = HEADS, HEAD_DIM, N_QUERIES * POINTS
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+
+    def note(errs, dtype):
+        if dtype == torch.float32:
+            max_err["fwd"] = max(max_err["fwd"], errs[0])
+            max_err["bwd"] = max([max_err["bwd"], *errs[1:]])
+
+    for BH, h, w, d, s, case in MM_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs, _ = _mm_level_inputs(BH, h, w, d, s, dtype, seed=3,
+                                         case=case)
+            errs = _mm_check(f"{h}x{w} D={d} S={s} {case}", inputs, h, w,
+                             backward=True)
+            note(errs, dtype)
+            print(f"[msda_mm] BH={BH} {h}x{w} D={d} S={s} {case} "
+                  f"{str(dtype)[6:]}: max_abs_err out={errs[0]:.3e} "
+                  f"d_val={errs[1]:.3e} d_x={errs[2]:.3e} d_y={errs[3]:.3e} "
+                  f"d_att={errs[4]:.3e} (tol {TOL[dtype]} / {BWD_TOL[dtype]} "
+                  "of the largest element), d_val bit-equal twice, ok")
+    # Points on integer coordinates and far outside: no coordinate gradient.
+    inputs, _ = _mm_level_inputs(3, 7, 5, 3, 150, torch.float32, 3, "integer")
+    _, d_x, d_y, _ = da.msda_mm_bwd(*inputs, 7, 5)
+    if (d_x[inputs[1] == inputs[1].round()] != 0).any() or \
+            (d_y[inputs[2] == inputs[2].round()] != 0).any():
+        raise AssertionError("msda_mm_bwd: a point on an integer coordinate "
+                             "got a coordinate gradient")
+    inputs, _ = _mm_level_inputs(3, 7, 5, 2, 150, torch.float32, 3, "far")
+    far = (inputs[1].abs() > 1e8) | (inputs[2].abs() > 1e8)
+    out = da.msda_mm_fwd(*inputs[:4], 7, 5)
+    grads = da.msda_mm_bwd(*inputs, 7, 5)
+    if any((t[far] != 0).any() for t in (out, *grads[1:])):
+        raise AssertionError("msda_mm: a point at +-1e9 added something")
+    # The differentiable op: autograd reaches both kernels.
+    args = [t.detach().requires_grad_(True) for t in inputs[:4]]
+    before = (da.msda_mm_fwd.launches, da.msda_mm_bwd.launches)
+    got = torch.autograd.grad(da.sample_level_fused(*args, 7, 5), args,
+                              inputs[4])
+    if (da.msda_mm_fwd.launches, da.msda_mm_bwd.launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError("sample_level_fused did not launch the kernels")
+    for g, wg in zip(got, grads):
+        if not torch.equal(g, wg):
+            raise AssertionError("sample_level_fused: autograd differs from "
+                                 "msda_mm_bwd")
+    print("[msda_mm] integer coordinates give d_x = d_y = 0, points at "
+          "+-1e9 give exactly 0 and gradient 0, sample_level_fused reaches "
+          "both kernels through autograd, ok")
+
+    # Every flagship level of all three views: forward at B=1, backward at
+    # B=4, float32 and bfloat16; then the times, float32. The camera's
+    # 512x910 level, which the cutoff keeps in gather form, is included.
+    reports = {}
+    print("[levels] per level, f32, ms by CUDA events (forward B=1 / "
+          f"backward B={B_TRAIN}): mm = msda_mm_fwd / msda_mm_bwd; k1 = "
+          "msda_fwd / msda_bwd on that one level; lib = grid_sample x att "
+          "and autograd through it; bound of the level op (bytes moved once "
+          "or its sampling operations); the floor of the matmul form's own "
+          "dense products at the card's float32 peak")
+    for view, shapes in view_shapes.items():
+        for h, w in shapes:
+            cells = {}
+            for B, backward in ((B1, False), (B_TRAIN, True)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    inputs, loc = _mm_level_inputs(B * H, h, w, D, S, dtype,
+                                                   seed=4)
+                    errs = _mm_check(f"{view} {h}x{w} B={B}", inputs, h, w,
+                                     backward)
+                    note(errs, dtype)
+                    cells[B, dtype] = errs
+                # Times in float32, on the inputs of the last float32 check.
+                inputs, loc = _mm_level_inputs(B * H, h, w, D, S,
+                                               torch.float32, seed=4)
+                val, x, y, att, grad = inputs
+                k1 = _one_level_msda(inputs, loc, h, w, B)
+                with torch.inference_mode():
+                    # The three compute the same function of these inputs.
+                    same = da.msda_mm_fwd(val, x, y, att, h, w)
+                    lib = _grid_sample_level(val, loc, att, h, w)
+                    one = da.msda_fwd(k1[0], ((h, w),), k1[1], k1[2])
+                    summed = same.view(B, H, N_QUERIES, POINTS, D).sum(
+                        3).permute(0, 2, 1, 3).reshape(B, N_QUERIES, H * D)
+                    for name, a, b in (("grid_sample", lib, same),
+                                       ("msda_fwd", one, summed)):
+                        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+                            raise AssertionError(
+                                f"{view} {h}x{w}: {name} and msda_mm_fwd "
+                                "disagree on the same level")
+                if not backward:
+                    with torch.inference_mode():
+                        t_mm = _cuda_ms(lambda: da.msda_mm_fwd(
+                            val, x, y, att, h, w), reps=20)
+                        t_k1 = _cuda_ms(lambda: da.msda_fwd(
+                            k1[0], ((h, w),), k1[1], k1[2]), reps=20)
+                        t_lib = _cuda_ms(lambda: _grid_sample_level(
+                            val, loc, att, h, w), reps=20)
+                        t_plain = _cuda_ms(
+                            lambda: da.sample_level_fused_plain(
+                                val, x, y, att, h, w), reps=5, warmup=1)
+                else:
+                    t_mm = _cuda_ms(lambda: da.msda_mm_bwd(
+                        val, x, y, att, grad, h, w), reps=20)
+                    t_k1 = _cuda_ms(lambda: da.msda_bwd(
+                        k1[0], ((h, w),), k1[1], k1[2], k1[3]), reps=20)
+                    leaves = [t.detach().requires_grad_(True)
+                              for t in (val, loc, att)]
+                    lib = _grid_sample_level(*leaves, h, w)
+                    t_lib = _cuda_ms(lambda: torch.autograd.grad(
+                        lib, leaves, grad, retain_graph=True), reps=20)
+                    leaves = [t.detach().requires_grad_(True)
+                              for t in (val, x, y, att)]
+                    plain = da.sample_level_fused_plain(*leaves, h, w)
+                    t_plain = _cuda_ms(lambda: torch.autograd.grad(
+                        plain, leaves, grad, retain_graph=True), reps=5,
+                        warmup=1)
+                    del lib, plain, leaves
+                bound, dense = _mm_bounds(B * H, h, w, D, S)[backward]
+                cells[B] = (t_mm, t_k1, t_lib, t_plain, bound, dense)
+            f, b = cells[B1], cells[B_TRAIN]
+            f32, bf16 = torch.float32, torch.bfloat16
+            mm_form = "mm" if h + w <= da._MATMUL_MAX_HW else "gather"
+            print(f"[levels] {view} {h}x{w} (under \"mm\": {mm_form}): "
+                  f"mm {f[0]:.4f} / {b[0]:.4f}, k1 {f[1]:.4f} / {b[1]:.4f}, "
+                  f"lib {f[2]:.4f} / {b[2]:.4f}, plain {f[3]:.4f} / "
+                  f"{b[3]:.4f}, bound {f[4][0]:.5f} ({f[4][1]}) / "
+                  f"{b[4][0]:.5f} ({b[4][1]}), dense products at peak "
+                  f"{f[5]:.5f} / {b[5]:.5f}; max_abs_err f32 out "
+                  f"{cells[B1, f32][0]:.2e} grads "
+                  f"{max(cells[B_TRAIN, f32][1:]):.2e}, bf16 out "
+                  f"{cells[B1, bf16][0]:.2e} grads "
+                  f"{max(cells[B_TRAIN, bf16][1:]):.2e}")
+            if (view, h, w) == ("camera_mono", 128, 228):
+                reports = {"fwd": f, "bwd": b}
+            torch.cuda.empty_cache()
+    if not reports:
+        raise AssertionError("no camera 128x228 level among the flagship "
+                             f"shapes {view_shapes}")
+
+    def report(name, line, key):
+        t_mm, _, t_lib, t_plain, bound, _ = reports[key]
+        return {"name": name, "route": "cuda",
+                "source": "dpft_tpu_torch/csrc/msda_mm.cu",
+                "replaces": f"dpft_tpu/ops/pallas/deform_attn_mm.py:{line}",
+                "max_abs_err": max_err[key], "ms": t_mm, "plain_ms": t_plain,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": t_lib}
+
+    return report("msda_mm_fwd", 73, "fwd"), report("msda_mm_bwd", 101, "bwd")
+
+
+def _event_and_host_ms(fn, reps=20, warmup=3):
+    """(ms by CUDA events, ms of host time to enqueue) per call of ``fn``:
+    where the two agree the host sets the pace."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, 1e3 * host / reps
+
+
+def _hold_mm_core(view, shapes, value, loc, att, grad):
+    """``ms_deform_attn_core(backend="mm")`` as the model calls it, and its
+    gradients by autograd, against ``ms_deform_attn_core_mm_plain`` in
+    float32. This is the path on which the kernels read each level in place
+    from ``value (B, Len, H, D)`` through strides and write into views of
+    the level outputs, ``d_value`` and ``d_xy``. Two runs must give the same
+    bits of ``d_value`` on every level in matmul form."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    def run(core):
+        leaves = [t.detach().requires_grad_(True) for t in (value, loc, att)]
+        out = core(leaves[0], shapes, *leaves[1:])
+        return out.detach(), torch.autograd.grad(out, leaves, grad)
+
+    def mm_core(*args):
+        return da.ms_deform_attn_core(*args, backend="mm")
+
+    (out, grads), (_, again) = run(mm_core), run(mm_core)
+    want, want_grads = run(da.ms_deform_attn_core_mm_plain)
+    torch.cuda.synchronize()
+    what = f"mm core {view} B={value.shape[0]}"
+    errs = [_hold(f"{what} out", out, want, TOL[torch.float32])]
+    errs += [_hold(f"{what} {name}", g, wg, BWD_TOL[torch.float32])
+             for name, g, wg in zip(("d_value", "d_loc", "d_att"), grads,
+                                    want_grads)]
+    for _, start, h, w in da._level_starts(shapes):
+        rows = slice(start, start + h * w)
+        if h + w <= da._MATMUL_MAX_HW and not torch.equal(
+                grads[0][:, rows], again[0][:, rows]):
+            raise AssertionError(f"{what}: d_value of level {h}x{w} differs "
+                                 "between two runs on the same inputs")
+    print(f"[core] {view} B={value.shape[0]} f32, mm core in place on "
+          f"strided views vs its plain version: max_abs_err out={errs[0]:.3e} "
+          f"d_value={errs[1]:.3e} d_loc={errs[2]:.3e} d_att={errs[3]:.3e} "
+          f"(tol {TOL[torch.float32]} / {BWD_TOL[torch.float32]} of the "
+          "largest element), d_value of the matmul levels bit-equal twice, ok")
+
+
+def phase_core_calls(view_shapes):
+    """One MSDA call of each view through ``ms_deform_attn_core``: in
+    float32 the "mm" backend and its gradients are held against the plain
+    hybrid core; then both backends, forward (inference) and forward +
+    backward, by CUDA events and by the host's clock: what the "mm" path
+    costs per call, shuffles and Python included."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    for view, shapes in view_shapes.items():
+        for B, dtype in ((B1, torch.float32), (B_TRAIN, torch.float32),
+                         (B_TRAIN, torch.bfloat16)):
+            value, loc, att = _msda_inputs(shapes, B, N_QUERIES, HEADS,
+                                           HEAD_DIM, POINTS, dtype, -0.2, 1.2,
+                                           seed=5)
+            grad = torch.randn(B, N_QUERIES, HEADS * HEAD_DIM, device="cuda",
+                               dtype=dtype)
+            if dtype == torch.float32:
+                _hold_mm_core(view, shapes, value, loc, att, grad)
+            cells = []
+            for backend in da.BACKENDS:
+                with torch.inference_mode():
+                    fwd = _event_and_host_ms(lambda: da.ms_deform_attn_core(
+                        value, shapes, loc, att, backend=backend))
+                leaves = [t.detach().requires_grad_(True)
+                          for t in (value, loc, att)]
+
+                def both():
+                    out = da.ms_deform_attn_core(leaves[0], shapes,
+                                                 *leaves[1:], backend=backend)
+                    torch.autograd.grad(out, leaves, grad)
+
+                step = _event_and_host_ms(both)
+                cells.append(f"{backend} forward {fwd[0]:.4f} (host "
+                             f"{fwd[1]:.4f}), forward + backward "
+                             f"{step[0]:.4f} (host {step[1]:.4f})")
+            print(f"[core] {view} B={B} {str(dtype)[6:]}, ms per MSDA call: "
+                  + "; ".join(cells))
+
+
+def phase_mm_model(config, model):
+    """config/kradar.json with ``fuser.pallas_msda: "mm"`` and the default
+    model's weights, against the default model: the B=1 float32 forward
+    and one B=4 train step. Returns the mm config and model."""
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
+    from dpft_tpu_torch.ops import deform_attn as da
+    from dpft_tpu_torch.training import CentralizedTrainer
+    from dpft_tpu_torch.utils.example import example_batch
+
+    mm_config = json.loads(json.dumps(config))
+    mm_config["model"]["fuser"]["pallas_msda"] = "mm"
+    mm_model = registry.build(mm_config["model"]["name"], mm_config,
+                              device="cuda", seed=1)
+    mm_model.load_state_dict(model.state_dict(), strict=True)
+    backends = {m.backend for m in mm_model.modules()
+                if isinstance(m, MSDeformAttn)}
+    if backends != {"mm"}:
+        raise AssertionError(f"the mm model's MSDA backends: {backends}")
+
+    model.eval()
+    mm_model.eval()
+    batch = _to_cuda(example_batch(config, B=1, cam_hw=(512, 910)))
+    with torch.inference_mode():
+        out, ref = mm_model(batch), model(batch)
+    for key in ("class", "center", "size", "angle"):
+        err = (out[key] - ref[key]).abs().max().item()
+        if not torch.allclose(out[key], ref[key], atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"{key}: mm model vs default model max abs "
+                                 f"err {err:.3e} exceeds 1e-4")
+        print(f"[mm] B=1 f32 {key}: mm model vs default model "
+              f"max_abs_err={err:.3e} (tol 1e-4) ok")
+
+    trainer = CentralizedTrainer.from_config(config)
+    batch, targets = _cuda_batch(config, seed=20)
+    step = _step_loss_and_grads(trainer, mm_model, batch, targets)
+    # The same model with the plain hybrid core: what the kernels must equal.
+    msda_layer.ms_deform_attn_core = _plain_core
+    try:
+        plain_step = _step_loss_and_grads(trainer, mm_model, batch, targets)
+    finally:
+        msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+    _compare_steps("mm model", "plain mm-core model", step, plain_step)
+    ref_step = _step_loss_and_grads(trainer, model, batch, targets)
+    _compare_steps("mm model", "default model", step, ref_step)
+    return mm_config, mm_model
+
+
+def phase_trained_steps(config, model, mm_model):
+    """Where the two forms' gradients part, shown on weights that the train
+    phases have updated (on the initial weights every query shares one set
+    of offsets and hardly a point lies on an integer pixel coordinate). The
+    default model's weights go into the mm model, then the same B=4 float32
+    step is taken twice by each model, once by each on its plain core, and
+    once by each with the points on exactly integer pixel coordinates taken
+    out of the coordinate gradient. There the matmul form's derivative is 0
+    (the TPU kernel's own) and the gather form's is one-sided, so the forms
+    differ by design, kernels and plain versions alike; with those points
+    taken out they agree as closely as a model agrees with itself. Reported
+    beside each other; held are the loss (1e-4, relative) and finite
+    gradients: phases 7 and 11 hold the gradients, on the initial weights."""
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch.ops import deform_attn as da
+    from dpft_tpu_torch.training import CentralizedTrainer
+
+    mm_model.load_state_dict(model.state_dict(), strict=True)
+    trainer = CentralizedTrainer.from_config(config)
+    batch, targets = _cuda_batch(config, seed=20)
+    on_integer = []
+
+    def without_integer_points(value, shapes, loc, att, backend="gather"):
+        sizes = da._level_sizes(tuple(map(tuple, shapes)), value.device)
+        xy = loc.detach().float() * sizes[:, None, :] - 0.5
+        on = xy == xy.round()
+        on_integer.append((int(on.sum()), on.numel()))
+        return da.ms_deform_attn_core(
+            value, shapes, torch.where(on, loc.detach(), loc), att,
+            backend=backend)
+
+    def steps(core, n=1):
+        msda_layer.ms_deform_attn_core = core
+        try:
+            return [_step_loss_and_grads(trainer, m, batch, targets)
+                    for m in (mm_model, model) for _ in range(n)]
+        finally:
+            msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+
+    mm, mm_again, ref, ref_again = steps(da.ms_deform_attn_core, n=2)
+    mm_plain, ref_plain = steps(_plain_core)
+    mm_out, ref_out = steps(without_integer_points)
+    calls = len(on_integer) // 2
+    hits, coordinates = map(sum, zip(*on_integer[:calls]))
+    print(f"[train] updated weights: {hits} of {coordinates} sampling "
+          f"coordinates of the step's {calls} MSDA calls lie on an integer")
+    for what, against, a, b, tol in (
+            ("mm model", "itself again", mm, mm_again, None),
+            ("default model", "itself again", ref, ref_again, None),
+            ("mm model", "plain mm-core model", mm, mm_plain, None),
+            ("default model", "plain-core model", ref, ref_plain, None),
+            ("mm model", "default model", mm, ref, None),
+            ("plain mm-core model", "plain-core model", mm_plain, ref_plain,
+             None),
+            ("mm model without integer points",
+             "default model without them", mm_out, ref_out, None)):
+        _compare_steps(f"updated weights, {what}", against, a, b, tol=tol)
 
 
 def _power_cube(shape, seed):
@@ -906,8 +1535,8 @@ def phase_prepare(config_path, config, model):
         _, run_s = _host_s(lambda: prepare.main(src, config_path, dst))
         launches = _read_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        expected = {"msda_fwd": 0, "msda_bwd": 0,
-                    "radar_reduce_ra": n_frames, "radar_reduce_ea": n_frames}
+        expected = dict.fromkeys(KERNELS, 0)
+        expected.update(radar_reduce_ra=n_frames, radar_reduce_ea=n_frames)
         if launches != expected:
             raise AssertionError(f"the prepare path launched {launches}, "
                                  f"expected {expected}")
@@ -1034,22 +1663,39 @@ def main():
 
     fwd_report = phase_kernel_vs_plain(view_shapes)
     phase_flagship(config, model)
-    serve_launches = phase_serve(config, model)
+    paths = {"serve": phase_serve(config, model, view_shapes)}
     bwd_report = phase_bwd_vs_plain(view_shapes)
     phase_train_step_vs_plain(config, model)
-    train_launches = phase_train(config, model)
+    # On the initial weights, as the step above: the train phases leave
+    # weights on which one step's gradients are ill-conditioned.
+    mm_config, mm_model = phase_mm_model(config, model)
+    paths["train"] = phase_train(config, model, view_shapes)
     phase_train_timing(config, model)
+
+    mm_fwd_report, mm_bwd_report = phase_mm_vs_plain(view_shapes)
+    phase_core_calls(view_shapes)
+    paths["serve_mm"] = phase_serve(mm_config, mm_model, view_shapes,
+                                    label="serve_mm")
+    paths["train_mm"] = phase_train(mm_config, mm_model, view_shapes,
+                                    label="train_mm", epochs=1, n_train=2,
+                                    n_val=1, resume=False)
+    _time_forwards(mm_config, mm_model, "flagship_mm")
+    phase_train_timing(mm_config, mm_model, label="train_mm")
+    phase_trained_steps(config, model, mm_model)
     ra_report, ea_report = phase_radar_vs_plain()
-    prepare_launches = phase_prepare(config_path, config, model)
+    phase_launch_counts(config, {"default": model, "mm": mm_model})
+    del mm_model
+    torch.cuda.empty_cache()
+    paths["prepare"] = phase_prepare(config_path, config, model)
     # `launches` is the count on the kernel's own main path.
-    reports = [(fwd_report, train_launches), (bwd_report, train_launches),
-               (ra_report, prepare_launches), (ea_report, prepare_launches)]
+    reports = [(fwd_report, "train"), (bwd_report, "train"),
+               (mm_fwd_report, "train_mm"), (mm_bwd_report, "train_mm"),
+               (ra_report, "prepare"), (ea_report, "prepare")]
     for report, own_path in reports:
         name = report["name"]
-        report["launches"] = own_path[name]
-        report["launches_by_path"] = {"serve": serve_launches[name],
-                                      "train": train_launches[name],
-                                      "prepare": prepare_launches[name]}
+        report["launches"] = paths[own_path][name]
+        report["launches_by_path"] = {path: launches[name]
+                                      for path, launches in paths.items()}
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     print(smi.splitlines()[0] if smi else smi)

@@ -15,7 +15,10 @@ space (``mpfusion.fusion{i}.ml_fusion_layers.ms_deform_attn{v}.*``,
    (``get_reference_points``), MPFusion fuses, and that iteration's own head
    refines the boxes.
 
-The MSDA kernel is chosen by the op (``ops.deform_attn``), not here.
+The MSDA realization (``msda_backend``: ``"gather"`` or ``"mm"``, see
+``ops.deform_attn``) is handed down to every ``MSDeformAttn`` as an
+attribute; ``build_mpfusion`` reads it from the config key
+``fuser.pallas_msda``, the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,11 +54,11 @@ class MLFusion(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
                  n_levels: int = 1, n_heads: int = 1, n_points: int = 1,
                  activation: str = "ReLU", dropout: float = 0.0,
-                 norm: bool = False):
+                 norm: bool = False, msda_backend: str = "gather"):
         super().__init__()
         self.self_attn = MultiheadAttention(d_model, n_heads, dropout=dropout)
         self.ms_deform_attn = MSDeformAttn(d_model, n_levels, n_heads,
-                                           n_points)
+                                           n_points, backend=msda_backend)
         self.ffn1 = nn.Linear(d_model, d_ffn)
         self.ffn2 = nn.Linear(d_ffn, d_model)
         self.use_norm = norm
@@ -105,7 +108,8 @@ class MPFusion(nn.Module):
                  n_heads: Optional[Sequence[int]] = None,
                  n_points: Optional[Sequence[int]] = None,
                  activation: str = "ReLU", dropout: float = 0.0,
-                 norm: bool = False, reduction: str = "mean"):
+                 norm: bool = False, reduction: str = "mean",
+                 msda_backend: str = "gather"):
         super().__init__()
         if reduction not in REDUCTIONS:
             raise ValueError(f"Invalid reduction: {reduction}")
@@ -117,7 +121,7 @@ class MPFusion(nn.Module):
         self.ml_fusion_layers = nn.ModuleDict({
             f"ms_deform_attn{v}": MLFusion(
                 d_model, d_ffn, n_levels[v], n_heads[v], n_points[v],
-                activation, dropout, norm)
+                activation, dropout, norm, msda_backend)
             for v in range(m_views)
         })
         cv = d_model * m_views
@@ -217,12 +221,13 @@ class IMPFusion(nn.Module):
                  n_heads: Optional[Sequence[int]] = None,
                  n_points: Optional[Sequence[int]] = None,
                  activation: str = "ReLU", dropout: float = 0.0,
-                 norm: bool = False, reduction: str = "mean"):
+                 norm: bool = False, reduction: str = "mean",
+                 msda_backend: str = "gather"):
         super().__init__()
         self.mpfusion = nn.ModuleDict({
             f"fusion{i}": MPFusion(m_views, d_model, d_ffn, n_levels,
                                    n_heads, n_points, activation, dropout,
-                                   norm, reduction)
+                                   norm, reduction, msda_backend)
             for i in range(i_iter)
         })
         # Independent head per iteration (the reference deep-copies it).
@@ -258,6 +263,23 @@ class IMPFusion(nn.Module):
         return out
 
 
+def msda_backend_from_config(config: Dict[str, Any]) -> str:
+    """The MSDA backend that ``fuser.pallas_msda`` selects.
+
+    The key is the JAX package's, so one config file serves both: ``"mm"``
+    gives the matmul-form hybrid; absent or false the gather form; ``true``
+    the gather form as well (there it selects the gather-form TPU kernel,
+    whose counterpart here is the default CUDA path). Anything else raises.
+    """
+    key = config.get("pallas_msda")
+    if key == "mm":
+        return "mm"
+    if key is None or isinstance(key, bool):
+        return "gather"
+    raise ValueError(f"fuser.pallas_msda must be \"mm\", true, false or "
+                     f"absent, got {key!r}")
+
+
 def build_mpfusion(config: Dict[str, Any], head: nn.Module) -> IMPFusion:
     def seq(key):
         return tuple(config[key]) if config.get(key) else None
@@ -276,4 +298,5 @@ def build_mpfusion(config: Dict[str, Any], head: nn.Module) -> IMPFusion:
         dropout=config.get("dropout", 0.0),
         norm=config.get("norm", False),
         reduction=config.get("reduction", "mean"),
+        msda_backend=msda_backend_from_config(config),
     )

@@ -3,7 +3,9 @@
 Counterpart of dpft_tpu/models/layers/ms_deform_attn.py. Linear layers
 predict per-query sampling offsets and softmaxed attention weights; the
 sampling runs through ``ops.deform_attn.ms_deform_attn_core`` (the CUDA
-kernel for CUDA tensors).
+kernels for CUDA tensors) with the layer's ``backend``: ``"gather"`` or
+``"mm"`` (see ``ops.deform_attn``). The backend is an attribute, not a
+parameter or a buffer: the state_dict does not depend on it.
 
 Init: ``sampling_offsets`` zero weight and a ring-grid bias scaled by point
 index; ``attention_weights`` zero weight and bias; value and output
@@ -36,11 +38,13 @@ def grid_offset_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 
 class MSDeformAttn(nn.Module):
     def __init__(self, d_model: int = 256, n_levels: int = 4,
-                 n_heads: int = 8, n_points: int = 4):
+                 n_heads: int = 8, n_points: int = 4,
+                 backend: str = "gather"):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by n_heads "
                              f"{n_heads}")
+        self.backend = backend
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
         self.sampling_offsets = nn.Linear(
@@ -103,5 +107,6 @@ class MSDeformAttn(nn.Module):
                      + offsets.float() / normalizer[None, None, None, :, None, :])
 
         out = ms_deform_attn_core(value.contiguous(), spatial_shapes,
-                                  locations.contiguous(), att.contiguous())
+                                  locations.contiguous(), att.contiguous(),
+                                  backend=self.backend)
         return self.output_proj(out)

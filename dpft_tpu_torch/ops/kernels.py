@@ -112,7 +112,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     # (cube, raster, scratch, out, D, R, E, A, lo, hi, stream)
     lib.dpft_radar_reduce_ea.argtypes = [ptr, table, ptr, ptr, i32, i32, i32,
                                          i32, i32, i32, ptr]
-    for fn in (lib.dpft_msda_fwd, lib.dpft_msda_bwd, lib.dpft_radar_reduce_ra,
+    # (val, x, y, att, out, dtype, BH, S, h, w, D, val_layout, stream)
+    layout = ctypes.POINTER(ctypes.c_int64)
+    lib.dpft_msda_mm_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                     i32, i32, i32, layout, ptr]
+    # (val, x, y, att, g, d_val, d_x, d_y, d_att, dtype, BH, S, h, w, D,
+    #  val_layout, d_val_layout, stream)
+    lib.dpft_msda_mm_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                     ptr, i32, i32, i32, i32, i32, i32, layout,
+                                     layout, ptr]
+    for fn in (lib.dpft_msda_fwd, lib.dpft_msda_bwd, lib.dpft_msda_mm_fwd,
+               lib.dpft_msda_mm_bwd, lib.dpft_radar_reduce_ra,
                lib.dpft_radar_reduce_ea):
         fn.restype = i32
     lib.dpft_cuda_error_string.argtypes = [i32]

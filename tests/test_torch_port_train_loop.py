@@ -7,6 +7,8 @@
    dpft_tpu's (within 1e-5 and 1e-6).
 2. ``python -m dpft_tpu_torch.train --device cpu`` on the K-Radar fixture
    for one epoch, then resumed from its checkpoint for a second.
+3. The same CLI, then ``python -m dpft_tpu_torch.evaluate --device cpu`` on
+   its checkpoint, with ``fuser.pallas_msda: "mm"`` in the config.
 """
 
 import json
@@ -30,6 +32,7 @@ from dpft_tpu.training import scheduler as jscheduler
 from dpft_tpu.training.loss import Loss as JLoss
 from dpft_tpu.utils.config import save_config
 from dpft_tpu_torch.models import registry
+from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
 from dpft_tpu_torch.training import scheduler
 from dpft_tpu_torch.training.trainer import CentralizedTrainer
 from kradar_fixture import base_config, make_raw_kradar
@@ -200,9 +203,9 @@ def fixture(tmp_path_factory):
     return root, processed, config
 
 
-def _cli(*args):
+def _cli(*args, module="dpft_tpu_torch.train"):
     return subprocess.run(
-        [sys.executable, "-m", "dpft_tpu_torch.train", *args],
+        [sys.executable, "-m", module, *args],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
                            CUDA_VISIBLE_DEVICES=""),
         capture_output=True, text=True, timeout=600)
@@ -238,3 +241,40 @@ def test_train_cli_and_resume_on_cpu(fixture):
     model, _, epoch, _ = registry.load(osp.join(
         run, "checkpoints", f"{timestamp}_checkpoint_0001.pt"), device="cpu")
     assert epoch == 1 and set(INPUTS) <= set(model.backbones)
+
+
+def test_train_and_evaluate_cli_with_mm_backend_on_cpu(fixture):
+    """One epoch with ``fuser.pallas_msda: "mm"``, then the evaluate CLI on
+    its checkpoint: the saved config.json carries the key through save ->
+    load, and the loaded model runs the matmul-form backend."""
+    root, processed, config = fixture
+    config = json.loads(json.dumps(config))
+    config["model"]["fuser"]["pallas_msda"] = "mm"
+    config["train"]["epochs"] = 1
+    cfg = osp.join(root, "config_mm.json")
+    save_config(config, cfg)
+    dst = osp.join(root, "log_mm")
+    proc = _cli("--src", processed, "--cfg", cfg, "--dst", dst,
+                "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    (timestamp,) = os.listdir(dst)
+    run = osp.join(dst, timestamp)
+    with open(osp.join(run, "config.json")) as f:
+        assert json.load(f)["model"]["fuser"]["pallas_msda"] == "mm"
+    rows = _read_scalars(osp.join(run, "scalars.jsonl"))
+    assert [(r["split"], r["epoch"]) for r in rows] == [("train", 0),
+                                                        ("val", 0)]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    ckpt = osp.join(run, "checkpoints", f"{timestamp}_checkpoint_0000.pt")
+    model, _, _, _ = registry.load(ckpt, device="cpu")
+    assert {m.backend for m in model.modules()
+            if isinstance(m, MSDeformAttn)} == {"mm"}
+
+    proc = _cli("--src", processed, "--cfg", cfg, "--checkpoint", ckpt,
+                "--dst", osp.join(root, "eval_mm"), "--device", "cpu",
+                module="dpft_tpu_torch.evaluate")
+    assert proc.returncode == 0, proc.stderr
+    out = osp.join(root, "eval_mm", timestamp)
+    assert osp.isfile(osp.join(out, "results.json"))
+    preds = osp.join(out, "exports", "kradar", "0.0", "all", "preds")
+    assert sorted(os.listdir(preds))[0] == "000000.txt"
