@@ -42,24 +42,32 @@ not 0:
    after 3 warm-up steps), the host share of matching, peak memory.
 10. Matmul-form kernels vs plain: ``msda_mm_fwd`` against the plain level
    op ``sample_level_fused_plain`` and ``msda_mm_bwd`` against
-   torch.autograd.grad through it, in float32, at border cases (D = 2, 3;
-   S and the map off the tiles; points on integer coordinates, which must
-   get no coordinate gradient; points at +-1e9, which must add exactly 0)
+   torch.autograd.grad through it, in float32, at border cases (D = 2, 3,
+   4; points on integer coordinates, which must get no coordinate
+   gradient; points at +-1e9, which must add exactly 0; and what the
+   kernels' 16 x 16 tiles make hard: a level smaller than a tile, h and w
+   one off a multiple of the tile, corners -1 and size - 1, all points in
+   one tile, all points outside the map, 5000 points; beyond the
+   shared-memory limit the wrappers raise and launch nothing)
    and at every flagship level of all three views (forward at B=1,
    backward at B=4, N=400): f32 within 1e-5 / 1e-4 of the largest element
    (sums in another order), bf16 within 2e-2 / 5e-2; ``msda_mm_bwd`` run
    twice gives bit-equal d_val. Then a table of times per level: the mm
    kernels, kernel #1 (``msda_fwd`` / ``msda_bwd``) on that one level,
    ``grid_sample`` times att (the one PyTorch call that computes the level
-   op; the port never calls it), the plain version and the bound; the
-   three are first held to compute the same function. The camera's 512x910
+   op; the port never calls it), the plain version, the bound and the
+   operations that the tiled form computes on these inputs; the three are
+   first held to compute the same function. The camera's 512x910
    level, which stays in gather form under "mm", is in the table too.
    Then one MSDA call of each view through ``ms_deform_attn_core``: under
    "mm", where the kernels work in place on strided views of one level of
    ``value``, the output and the gradients by autograd are held against
    the plain hybrid core at B=1 and B=4 in float32 (1e-5 / 1e-4 of the
-   largest element, d_value of the matmul levels bit-equal twice); then
-   both backends by CUDA events and by the host's clock.
+   largest element, d_value of the matmul levels bit-equal twice); the
+   grouped launch of all matmul levels of the call is held, bit for bit,
+   against the per-level launches (out, d_val, d_x, d_y, d_att) and its
+   own coordinates and weights against ``mm_coords_plain``; then both
+   backends by CUDA events and by the host's clock.
 11. mm model vs default model (run right after phase 7, on the same initial
    weights): config/kradar.json with ``fuser.pallas_msda: "mm"`` set in the
    loaded dict and the default model's weights; the B=1 f32 forward within
@@ -67,8 +75,9 @@ not 0:
    parameter gradient within 1e-3 of its largest, against the same model
    on the plain hybrid core and against the default model.
 12. Serve path under "mm" (the fourth main path): as phase 5 with the mm
-   model; ``msda_mm_fwd`` exactly once per level up to the cutoff and
-   ``msda_fwd`` once per level above it, per view, iteration and forward.
+   model; ``msda_mm_fwd`` exactly once per view with a level up to the
+   cutoff (all its matmul levels in one launch) and ``msda_fwd`` once per
+   level above it, per iteration and forward.
 13. Train path under "mm" (the fifth main path): CentralizedTrainer for 1
    epoch of 2 B=4 steps and a validation batch, exact counts of all four
    MSDA kernels. Then the times of phases 4 and 9 under "mm"; the train
@@ -78,7 +87,8 @@ not 0:
    gather form's one-sided, so the two forms differ by design (reported,
    not held); and, after every timed phase, the
    kernels, copies and memsets that one forward of the default and of the
-   mm model puts on the card (torch.profiler).
+   mm model puts on the card, and the device time of every MSDA kernel of
+   one call per view under both backends, by name (torch.profiler).
 14. Radar kernels vs plain: ``radar_reduce_ra`` / ``radar_reduce_ea``
    against ``reduce_tesseract_plain`` on the card at four small cubes and
    at K-Radar's (64, 256, 37, 107), positive powers from a numpy seed,
@@ -145,10 +155,18 @@ REPS = 20  # timed forwards of the evaluator's latency phase
 KERNELS = ("msda_fwd", "msda_bwd", "msda_mm_fwd", "msda_mm_bwd",
            "radar_reduce_ra", "radar_reduce_ea")
 # Matmul-form border cases (BH, h, w, D, S, placement of the points): odd
-# head dims, S off the 64-sample tile, maps off the 64 x 64 tiles, points on
-# integer coordinates and at +-1e9.
+# head dims, points on integer coordinates and at +-1e9; and what the 16 x 16
+# tiles of csrc/msda_mm.cu make hard: a level smaller than one tile, h and w
+# one more and one less than a multiple of the tile, S off the warp (33,
+# 131, 150), points whose corner is -1 or size - 1 ("edges"), all points in
+# one tile of a level of many, all points outside the map, and more
+# candidates per block than one round of the sample list holds (5000).
 MM_CASES = ((3, 7, 5, 3, 150, "integer"), (3, 7, 5, 2, 150, "far"),
-            (2, 70, 33, 2, 131, "random"), (2, 5, 100, 3, 64, "integer"))
+            (2, 70, 33, 2, 131, "random"), (2, 5, 100, 3, 64, "integer"),
+            (2, 2, 3, 2, 33, "random"), (2, 17, 33, 2, 150, "edges"),
+            (2, 15, 31, 3, 150, "edges"), (2, 40, 50, 2, 1600, "one_tile"),
+            (2, 20, 36, 2, 150, "outside"), (1, 150, 160, 2, 5000, "random"),
+            (2, 33, 17, 4, 131, "integer"))
 
 # Published peaks of one H100 SXM: device memory rate and float32 rate
 # outside the tensor cores.
@@ -230,17 +248,19 @@ def _read_launches():
 def _expected_launches(config, view_shapes, forwards, steps):
     """Launches of every kernel over ``forwards`` model forwards of which
     ``steps`` are followed by a backward, from the model's level shapes:
-    under "mm" one ``msda_mm_*`` launch per level up to the cutoff and one
-    of kernel #1 per level above it, per view and fusion iteration; else
-    one launch of kernel #1 per view and iteration."""
+    under "mm" one ``msda_mm_*`` launch per view that has a level up to the
+    cutoff (all its matmul levels go in one launch) and one of kernel #1
+    per level above it, per fusion iteration; else one launch of kernel #1
+    per view and iteration."""
     from dpft_tpu_torch.models.fusers.mpfusion import msda_backend_from_config
-    from dpft_tpu_torch.ops.deform_attn import _MATMUL_MAX_HW
+    from dpft_tpu_torch.ops.deform_attn import MM_MAX_LEVELS, _MATMUL_MAX_HW
 
     fuser = config["model"]["fuser"]
-    levels = [hw for shapes in view_shapes.values() for hw in shapes]
     if msda_backend_from_config(fuser) == "mm":
-        mm = sum(h + w <= _MATMUL_MAX_HW for h, w in levels)
-        gather = len(levels) - mm
+        per_view = [sum(h + w <= _MATMUL_MAX_HW for h, w in shapes)
+                    for shapes in view_shapes.values()]
+        mm = sum(-(-n // MM_MAX_LEVELS) for n in per_view)
+        gather = sum(map(len, view_shapes.values())) - sum(per_view)
     else:
         mm, gather = 0, len(view_shapes)
     per = {"msda_fwd": (gather, forwards), "msda_bwd": (gather, steps),
@@ -285,8 +305,13 @@ def phase_build():
 
     t0 = time.perf_counter()
     info = kernels.build()
-    kernels.library()
+    lib = kernels.library()
     seconds = time.perf_counter() - t0
+    from dpft_tpu_torch.ops import deform_attn as da
+    if lib.dpft_msda_mm_tile() != da.MM_TILE:
+        raise AssertionError(f"csrc/msda_mm.cu tiles by "
+                             f"{lib.dpft_msda_mm_tile()}, the wrappers by "
+                             f"{da.MM_TILE}")
     print(f"[build] {os.path.relpath(info.path, ROOT)} in {seconds:.2f} s "
           f"(nvcc {info.seconds:.2f} s)")
     for line in info.log.splitlines():
@@ -476,6 +501,46 @@ def phase_launch_counts(config, models):
                 counts[label] = n or "not measured"
             print(f"[launches] B={B} {str(dtype)[6:]}: device launches per "
                   f"forward {counts}")
+
+
+def phase_kernel_times(view_shapes):
+    """Device time of every kernel that one MSDA call (forward + backward)
+    of each view launches, under both backends, by name (torch.profiler,
+    mean of 10 calls). Runs after every timed phase, as
+    ``phase_launch_counts`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    for view, shapes in view_shapes.items():
+        for B in (B1, B_TRAIN):
+            value, loc, att = _msda_inputs(shapes, B, N_QUERIES, HEADS,
+                                           HEAD_DIM, POINTS, torch.float32,
+                                           -0.2, 1.2, seed=5)
+            grad = torch.randn(B, N_QUERIES, HEADS * HEAD_DIM, device="cuda")
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (value, loc, att)]
+            for backend in da.BACKENDS:
+                def both():
+                    out = da.ms_deform_attn_core(leaves[0], shapes,
+                                                 *leaves[1:], backend=backend)
+                    torch.autograd.grad(out, leaves, grad)
+
+                both()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        both()
+                    torch.cuda.synchronize()
+                cells = []
+                for event in prof.key_averages():
+                    if "msda" in event.key and event.device_time_total > 0:
+                        name = event.key[event.key.find("msda"):].split("(")[0]
+                        cells.append(f"{name} "
+                                     f"{event.device_time_total / event.count:.1f}")
+                print(f"[kernel times] {view} B={B} f32 {backend}, us per "
+                      f"launch: {', '.join(sorted(cells)) or 'not measured'}")
 
 
 class _Loader:
@@ -807,6 +872,23 @@ def _mm_level_inputs(BH, h, w, D, S, dtype, seed, case="random"):
         raise AssertionError("no point on an integer coordinate")
     if case == "far":
         x[:, :5], y[:, 3:9] = 1e9, -1e9
+    elif case == "edges":
+        # Corners -1 and size - 1 (the halo row and column of the border
+        # tiles), and the lines -1, 0, size - 1 and size themselves.
+        x[:, 0::8] = -1.0 + x[:, 0::8].abs() % 1
+        x[:, 1::8] = w - 1.0 + x[:, 1::8].abs() % 1
+        y[:, 2::8] = -1.0 + y[:, 2::8].abs() % 1
+        y[:, 3::8] = h - 1.0 + y[:, 3::8].abs() % 1
+        x[:, 4:44:8] = torch.tensor([-1.0, 0.0, w - 1.0, w, 15.0],
+                                    device="cuda")
+        y[:, 5:45:8] = torch.tensor([-1.0, 0.0, h - 1.0, h, 16.0],
+                                    device="cuda")
+    elif case == "one_tile":
+        # Every corner in the tile of rows and columns 16 .. 31.
+        x, y = 16 + x.abs() % 15.9, 16 + y.abs() % 15.9
+    elif case == "outside":
+        x[:, 0::2] = -1.0 - x[:, 0::2].abs()
+        y[:, 1::2] = h + y[:, 1::2].abs()
     att = torch.tensor(rng.uniform(size=(BH, S)), dtype=dtype, device="cuda")
     grad = torch.tensor(rng.normal(size=(BH, S, D)), dtype=dtype,
                         device="cuda")
@@ -867,25 +949,38 @@ def _mm_check(what, inputs, h, w, backward):
     return errs
 
 
-def _mm_bounds(BH, h, w, D, S, itemsize=4):
-    """Bounds of one level's op, forward and backward: ``(bound, dense_ms)``
+def _mm_bounds(BH, h, w, D, S, x, y, itemsize=4):
+    """Bounds of one level's op, forward and backward: ``(bound, tiled_ms)``
     each. The bound is what the function needs, whatever form computes it:
     val, x, y, att and the output moved once (backward: also grad_out,
     d_val, d_x, d_y, d_att), or the sampling operations, 10 per corner and
-    channel forward and 30 backward as for kernel #1. ``dense_ms`` is the
-    floor of the matmul form's own design, not of the function: its dense
-    float32 products, 2*S*h*w*D operations per batch-head plus the
-    contraction with Ax (three such products and row sums backward), at
-    the card's peak rate."""
+    channel forward and 30 backward as for kernel #1. ``tiled_ms`` is the
+    floor of the tiled matmul form's own design, not of the function: the
+    float32 operations of the small products it computes on these inputs,
+    at the card's peak rate. Per channel and sample inside the map the
+    forward multiplies the 9 x 9 values around the corner (a quarter of a
+    tile and its halo) by Ay and the 9 sums by Ax; the backward does that
+    with Ay and Ay' and three row sums, and adds a 16 x 16 block of
+    Ay^T d_tmp for every tile of d_val that a sample of this run touches."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
     small = BH * S * (2 * 4 + itemsize)            # x, y, att
     plane = BH * h * w * D * itemsize
     out = BH * S * D * itemsize
     corners = 4 * BH * S * D
-    dense = 2 * BH * S * h * w * D + 2 * BH * S * w * D
+    win = da.MM_TILE // 2 + 1
+    n_tr, n_tc = da.mm_tile_counts(h, w)
+    inside = int((da.mm_bin_index(x, y, h, w) < n_tr * n_tc).sum())
+    fwd_ops = inside * D * (2 * win * win + 2 * win)
+    rows = sum(da.mm_touches(y, r * da.MM_TILE).long() for r in range(n_tr))
+    cols = sum(da.mm_touches(x, c * da.MM_TILE).long() for c in range(n_tc))
+    touched = int((rows * cols).sum())             # (sample, d_val tile) pairs
+    bwd_ops = (inside * D * (4 * win * win + 8 * win)
+               + touched * 2 * da.MM_TILE ** 2 * D)
     return ((_bound(plane + small + out, 10 * corners),
-             1e3 * dense / PEAK_F32_FLOPS),
+             1e3 * fwd_ops / PEAK_F32_FLOPS),
             (_bound(2 * plane + 2 * small + out, 30 * corners),
-             3e3 * dense / PEAK_F32_FLOPS))
+             1e3 * bwd_ops / PEAK_F32_FLOPS))
 
 
 def _one_level_msda(inputs, loc, h, w, B):
@@ -916,6 +1011,26 @@ def _grid_sample_level(val, loc, att, h, w):
         image, grid.to(val.dtype), mode="bilinear", padding_mode="zeros",
         align_corners=False)                                 # (BH, D, S, 1)
     return out[..., 0].transpose(1, 2) * att[..., None]
+
+
+def _check_mm_limits(da):
+    """Beyond the kernels' limits a CUDA level raises and launches
+    nothing: 289 values of heads * D = 256 floats are 296 KB of shared
+    memory."""
+    inputs, _ = _mm_level_inputs(1, 3, 4, 256, 40, torch.float32, seed=3)
+    for wrapper, args in ((da.msda_mm_fwd, inputs[:4]),
+                          (da.msda_mm_bwd, inputs)):
+        before = wrapper.launches
+        try:
+            wrapper(*args, 3, 4)
+        except RuntimeError as exc:
+            if "limits" not in str(exc) or wrapper.launches != before:
+                raise
+        else:
+            raise AssertionError(f"{wrapper.__name__} accepted D = 256, "
+                                 "beyond its shared-memory limit")
+    print("[msda_mm] beyond the shared-memory limit both wrappers raise, "
+          "naming the limits, and launch nothing, ok")
 
 
 def phase_mm_vs_plain(view_shapes):
@@ -971,6 +1086,7 @@ def phase_mm_vs_plain(view_shapes):
     print("[msda_mm] integer coordinates give d_x = d_y = 0, points at "
           "+-1e9 give exactly 0 and gradient 0, sample_level_fused reaches "
           "both kernels through autograd, ok")
+    _check_mm_limits(da)
 
     # Every flagship level of all three views: forward at B=1, backward at
     # B=4, float32 and bfloat16; then the times, float32. The camera's
@@ -980,8 +1096,10 @@ def phase_mm_vs_plain(view_shapes):
           f"backward B={B_TRAIN}): mm = msda_mm_fwd / msda_mm_bwd; k1 = "
           "msda_fwd / msda_bwd on that one level; lib = grid_sample x att "
           "and autograd through it; bound of the level op (bytes moved once "
-          "or its sampling operations); the floor of the matmul form's own "
-          "dense products at the card's float32 peak")
+          "or its sampling operations); tiled = the operations that the "
+          "tiled matmul form computes on these inputs (9 x 9 products per "
+          "channel and sample inside the map, 16 x 16 per touched d_val "
+          "tile) at the card's float32 peak")
     for view, shapes in view_shapes.items():
         for h, w in shapes:
             cells = {}
@@ -1039,7 +1157,7 @@ def phase_mm_vs_plain(view_shapes):
                         plain, leaves, grad, retain_graph=True), reps=5,
                         warmup=1)
                     del lib, plain, leaves
-                bound, dense = _mm_bounds(B * H, h, w, D, S)[backward]
+                bound, dense = _mm_bounds(B * H, h, w, D, S, x, y)[backward]
                 cells[B] = (t_mm, t_k1, t_lib, t_plain, bound, dense)
             f, b = cells[B1], cells[B_TRAIN]
             f32, bf16 = torch.float32, torch.bfloat16
@@ -1048,7 +1166,7 @@ def phase_mm_vs_plain(view_shapes):
                   f"mm {f[0]:.4f} / {b[0]:.4f}, k1 {f[1]:.4f} / {b[1]:.4f}, "
                   f"lib {f[2]:.4f} / {b[2]:.4f}, plain {f[3]:.4f} / "
                   f"{b[3]:.4f}, bound {f[4][0]:.5f} ({f[4][1]}) / "
-                  f"{b[4][0]:.5f} ({b[4][1]}), dense products at peak "
+                  f"{b[4][0]:.5f} ({b[4][1]}), tiled products at peak "
                   f"{f[5]:.5f} / {b[5]:.5f}; max_abs_err f32 out "
                   f"{cells[B1, f32][0]:.2e} grads "
                   f"{max(cells[B_TRAIN, f32][1:]):.2e}, bf16 out "
@@ -1129,6 +1247,56 @@ def _hold_mm_core(view, shapes, value, loc, att, grad):
           "largest element), d_value of the matmul levels bit-equal twice, ok")
 
 
+def _hold_group_vs_levels(view, shapes, value, loc, att, grad):
+    """The grouped launch of all matmul levels of one MSDA call against the
+    per-level launches on the same tensors, in place on ``value``: the same
+    bits in every level's output and in d_value, d_x, d_y and d_att, and one
+    launch per direction."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    B, _, H, D = value.shape
+    N, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    shapes = tuple(map(tuple, shapes))
+    sizes = da._level_sizes(shapes, value.device)
+    want_xy, want_att_t = da.mm_coords_plain(loc, att, sizes)
+    xy, att_t = torch.empty_like(want_xy), torch.empty_like(want_att_t)
+    g = grad.view(B, N, H, 1, D).permute(0, 2, 1, 3, 4).expand(
+        B, H, N, P, D).reshape(B * H, N * P, D)
+    mm, _ = da._split_levels(shapes)
+    out = torch.empty((len(mm), B * H, N * P, D), dtype=value.dtype,
+                      device="cuda")
+    grads = (torch.zeros_like(value), torch.zeros_like(xy),
+             torch.zeros_like(att_t))
+    before = (da.msda_mm_fwd.launches, da.msda_mm_bwd.launches)
+    bins = da.msda_mm_fwd_group(value, mm, loc, att, sizes, xy, att_t, out)
+    if not (torch.equal(xy, want_xy) and torch.equal(att_t, want_att_t)):
+        raise AssertionError(f"{view}: the launch's own coordinates and "
+                             "weights differ from mm_coords_plain")
+    da.msda_mm_bwd_group(value, mm, xy, att_t, g, bins, out=grads)
+    if (da.msda_mm_fwd.launches, da.msda_mm_bwd.launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError(f"{view}: the grouped call took more than one "
+                             "launch per direction")
+    for k, (lvl, start, h, w) in enumerate(mm):
+        level = da._level_view(value, start, h, w)
+        args = (level, xy[lvl, 0], xy[lvl, 1], att_t[lvl])
+        one = da.msda_mm_fwd(*args, h, w)
+        d_val, d_x, d_y, d_att = da.msda_mm_bwd(*args, g, h, w)
+        for name, a, b in (
+                ("out", out[k], one),
+                ("d_val", da._level_view(grads[0], start, h, w), d_val),
+                ("d_x", grads[1][lvl, 0], d_x), ("d_y", grads[1][lvl, 1], d_y),
+                ("d_att", grads[2][lvl], d_att)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{view} B={B} {value.dtype} level {h}x{w}: {name} of "
+                    "the grouped launch differs from the per-level launch")
+    print(f"[core] {view} B={B} {str(value.dtype)[6:]}: one grouped launch "
+          f"of {len(mm)} levels gives the bits of {len(mm)} per-level "
+          "launches (out, d_val, d_x, d_y, d_att), and makes the "
+          "coordinates and weights of mm_coords_plain bit for bit, ok")
+
+
 def phase_core_calls(view_shapes):
     """One MSDA call of each view through ``ms_deform_attn_core``: in
     float32 the "mm" backend and its gradients are held against the plain
@@ -1147,6 +1315,7 @@ def phase_core_calls(view_shapes):
                                dtype=dtype)
             if dtype == torch.float32:
                 _hold_mm_core(view, shapes, value, loc, att, grad)
+            _hold_group_vs_levels(view, shapes, value, loc, att, grad)
             cells = []
             for backend in da.BACKENDS:
                 with torch.inference_mode():
@@ -1684,6 +1853,7 @@ def main():
     phase_trained_steps(config, model, mm_model)
     ra_report, ea_report = phase_radar_vs_plain()
     phase_launch_counts(config, {"default": model, "mm": mm_model})
+    phase_kernel_times(view_shapes)
     del mm_model
     torch.cuda.empty_cache()
     paths["prepare"] = phase_prepare(config_path, config, model)

@@ -112,15 +112,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     # (cube, raster, scratch, out, D, R, E, A, lo, hi, stream)
     lib.dpft_radar_reduce_ea.argtypes = [ptr, table, ptr, ptr, i32, i32, i32,
                                          i32, i32, i32, ptr]
-    # (val, x, y, att, out, dtype, BH, S, h, w, D, val_layout, stream)
-    layout = ctypes.POINTER(ctypes.c_int64)
-    lib.dpft_msda_mm_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                     i32, i32, i32, layout, ptr]
-    # (val, x, y, att, g, d_val, d_x, d_y, d_att, dtype, BH, S, h, w, D,
-    #  val_layout, d_val_layout, stream)
+    # (val, x, y, att, out, scratch, scratch_len, bins_ready, dtype,
+    #  n_levels, table, B, heads, S, D, loc, att_src, sizes, N, L, P, stream)
+    levels, i64 = ctypes.POINTER(ctypes.c_int64), ctypes.c_int64
+    lib.dpft_msda_mm_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32,
+                                     i32, i32, levels, i32, i32, i32, i32,
+                                     ptr, ptr, ptr, i32, i32, i32, ptr]
+    # (val, x, y, att, g, d_val, d_x, d_y, d_att, scratch, scratch_len,
+    #  bins_ready, dtype, n_levels, table, B, heads, S, D, stream)
     lib.dpft_msda_mm_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                     ptr, i32, i32, i32, i32, i32, i32, layout,
-                                     layout, ptr]
+                                     ptr, ptr, i64, i32, i32, i32, levels,
+                                     i32, i32, i32, i32, ptr]
+    lib.dpft_msda_mm_tile.argtypes = []
+    lib.dpft_msda_mm_tile.restype = i32
     for fn in (lib.dpft_msda_fwd, lib.dpft_msda_bwd, lib.dpft_msda_mm_fwd,
                lib.dpft_msda_mm_bwd, lib.dpft_radar_reduce_ra,
                lib.dpft_radar_reduce_ea):
