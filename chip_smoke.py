@@ -90,27 +90,40 @@ not 0:
    mm model puts on the card, and the device time of every MSDA kernel of
    one call per view under both backends, by name (torch.profiler).
 14. Radar kernels vs plain: ``radar_reduce_ra`` / ``radar_reduce_ea``
-   against ``reduce_tesseract_plain`` on the card at four small cubes and
-   at K-Radar's (64, 256, 37, 107), positive powers from a numpy seed,
-   rtol 3e-4 / atol 3e-2 (float32 sums in another order) channel by
-   channel, each channel's typical value printed beside its error and
-   required to lie above 30 times atol, with the doppler-of-max lookup
-   channel exactly equal; beyond their shared-memory limits the wrappers
-   raise; at full size also against
-   the numpy transliteration on the host. Times by CUDA events: each
-   kernel, the plain version, the copy of one cube to the card from
-   pageable and from pinned memory, each beside its bound.
+   against ``reduce_tesseract_plain`` on the card at seven small cubes (two
+   with a doppler axis that is no multiple of 4, one cropped at 252 range
+   bins, one with 37 elevation bins and five doppler bins) and at K-Radar's (64, 256, 37, 107), positive powers from a numpy
+   seed, each cube doppler-fastest (the kernels' layout, which loadmat
+   gives), C-contiguous (one layout copy in the wrapper) and in float64
+   through ``reduce_tesseract`` (cast on the card, bit-equal planes); a
+   cube in another layout raises. rtol 3e-4 / atol 3e-2 (float32 sums in
+   another order) channel by channel, each channel's typical value printed
+   beside its error and required to lie above 30 times atol, with the
+   doppler-of-max lookup channel exactly equal; beyond their limits the
+   wrappers raise and the launchers refuse; at full size also against the
+   numpy transliteration on the host. Times by CUDA events: each kernel in
+   both layouts, the layout copy and the cast apart, the plain version, the
+   copy of one float32 and one float64 cube to the card from pageable and
+   from pinned memory, each beside its bound; after every timed phase the
+   device time of each radar kernel, the cast and the layout copy by name
+   (torch.profiler).
 15. Prepare path (the third main path): a raw K-Radar tree of ten frames
    (eight train, one val, one test) at K-Radar's shapes is written to a
    temporary directory, then
    ``dpft_tpu_torch.prepare.main`` runs on it with config/kradar.json on
-   the default device. Checked: the twelve files of every frame, the plane
+   the default device (TF32 set on beforehand, found off afterwards).
+   Checked: the twelve files of every frame, the plane
    shapes, ``ra.npy`` / ``ea.npy`` against the plain version, exact launch
    counts (one of each radar kernel per frame, no MSDA launch; counts
-   reset right before, read right after). One split is then read back
+   reset right before, read right after), that the processor hands the
+   reduction the float64 doppler-fastest cube on the card (no host cast)
+   and that one worker holds no more than a float64 and a float32 cube
+   there. One split is then read back
    through the port's dataset and loader and run through the flagship
    model. Printed: frames per second, the peak device memory of the run
-   (eight workers hold a cube each) and the per-frame split.
+   (eight workers at once) and the per-frame split: loadmat, copy of the
+   float64 cube, cast on the card, kernels, planes back, files; beside it
+   the same frame with the cast on the host.
 
 The kernel report gives, for every kernel, its launches on the five main
 paths, its error against the plain version, its time, the plain version's,
@@ -174,10 +187,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 # Radar cubes (doppler, range, elevation, azimuth): small ones with odd and
-# even elevation counts and non-power-of-two axes, then K-Radar's.
+# even elevation counts and non-power-of-two axes, two whose doppler axis is
+# no multiple of 4 (no 16-byte loads; 7 is odd, so no 8-byte loads either,
+# and 300 range bins are cropped at 252), one with K-Radar's 37 elevation
+# bins (the RA kernel that sorts in registers) and an odd doppler axis, then
+# K-Radar's.
 KRADAR_CUBE = (64, 256, 37, 107)
 RADAR_SHAPES = ((16, 32, 5, 9), (16, 32, 6, 9), (8, 32, 6, 10), (12, 24, 3, 5),
-                KRADAR_CUBE)
+                (6, 40, 4, 3), (7, 300, 3, 5), (5, 12, 37, 2), KRADAR_CUBE)
 RADAR_TOL = dict(rtol=3e-4, atol=3e-2)
 # The least typical size of a reference channel that this tolerance can
 # check: 30 times atol.
@@ -1494,10 +1511,16 @@ def _channels(values):
 
 
 def _check_limits(rr):
-    """Beyond the kernels' limits a CUDA cube raises and launches nothing."""
-    # RA: 4 * (96 * 64 + 512 * 128) bytes of shared memory; EA: 4 * 248 * 300.
+    """Beyond the kernels' limits a CUDA cube raises and launches nothing,
+    and the launchers themselves refuse such shapes."""
+    import ctypes
+
+    from dpft_tpu_torch.ops import kernels
+
+    # RA: 4 * 8 * 64 * 128 bytes of shared memory; both: 65 doppler bins.
     cases = ((rr.radar_reduce_ra, (64, 8, 128, 4)),
-             (rr.radar_reduce_ea, (2, 256, 1, 300)))
+             (rr.radar_reduce_ra, (65, 8, 2, 2)),
+             (rr.radar_reduce_ea, (65, 8, 2, 2)))
     for wrapper, shape in cases:
         before = wrapper.launches
         try:
@@ -1507,9 +1530,24 @@ def _check_limits(rr):
                 raise
         else:
             raise AssertionError(f"{wrapper.__name__} accepted {shape}, "
-                                 "beyond its shared-memory limit")
-    print("[radar] beyond the shared-memory limit both wrappers raise and "
-          "launch nothing, ok")
+                                 "beyond its limits")
+    # The crop keeps every EA slab the wrapper can ask for inside the shared
+    # memory, so the launcher's own refusal is shown on rows [0, 1000).
+    lib = kernels.library()
+    cube = torch.ones((64, 1000, 1, 1), device="cuda")
+    out = torch.zeros((128, 1, 6), device="cuda")
+    raster = rr._raster(64).ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = (lib.dpft_radar_reduce_ea(cube.data_ptr(), raster, out.data_ptr(),
+                                      64, 1000, 1, 1, 0, 1000, stream),
+             lib.dpft_radar_reduce_ra(cube.data_ptr(), raster, out.data_ptr(),
+                                      64, 1, 128, 1, stream))
+    torch.cuda.synchronize()
+    if 0 in codes or bool(out.any()):
+        raise AssertionError(f"the launchers returned {codes} beyond their "
+                             "shared-memory limits")
+    print("[radar] beyond their limits both wrappers raise and launch "
+          f"nothing, and the launchers refuse (CUDA error codes {codes}), ok")
 
 
 def _radar_bounds(shape):
@@ -1532,23 +1570,54 @@ def phase_radar_vs_plain():
     max_err = {"ra": 0.0, "ea": 0.0}
     for shape in RADAR_SHAPES:
         host = _power_cube(shape, seed=0)
-        cube = torch.from_numpy(host).cuda()
-        ra = rr.radar_reduce_ra(cube)
-        ea = rr.radar_reduce_ea(cube)
-        torch.cuda.synchronize()
-        want_ra, want_ea = rr.reduce_tesseract_plain(cube)
-        errs = {"ra": _check_plane(f"radar_reduce_ra {shape}", ra, want_ra),
-                "ea": _check_plane(f"radar_reduce_ea {shape}", ea, want_ea)}
-        for key in max_err:
-            max_err[key] = max(max_err[key], errs[key][0])
-        print(f"[radar] {shape} kernel vs plain: ra max_abs_err="
-              f"{errs['ra'][0]:.3e}, ea max_abs_err={errs['ea'][0]:.3e} "
-              f"(rtol {RADAR_TOL['rtol']}, atol {RADAR_TOL['atol']}), "
-              "lookup channel exact, ok")
+        contiguous = torch.from_numpy(host).cuda()
+        # The kernels' own layout, as loadmat gives it: doppler fastest.
+        cube = rr.to_doppler_fastest(contiguous)
+        if cube.stride() != rr.doppler_fastest_strides(shape) or \
+                cube.data_ptr() == contiguous.data_ptr():
+            raise AssertionError(f"{shape}: strides {cube.stride()}")
+        want_ra, want_ea = rr.reduce_tesseract_plain(contiguous)
+        layouts = (("doppler-fastest", cube), ("C-contiguous", contiguous))
+        for layout, given in layouts:
+            ra = rr.radar_reduce_ra(given)
+            ea = rr.radar_reduce_ea(given)
+            torch.cuda.synchronize()
+            errs = {"ra": _check_plane(f"radar_reduce_ra {shape} {layout}",
+                                       ra, want_ra),
+                    "ea": _check_plane(f"radar_reduce_ea {shape} {layout}",
+                                       ea, want_ea)}
+            for key in max_err:
+                max_err[key] = max(max_err[key], errs[key][0])
+            print(f"[radar] {shape} {layout} kernel vs plain: ra max_abs_err="
+                  f"{errs['ra'][0]:.3e}, ea max_abs_err={errs['ea'][0]:.3e} "
+                  f"(rtol {RADAR_TOL['rtol']}, atol {RADAR_TOL['atol']}), "
+                  "lookup channel exact, ok")
         for key in ("ra", "ea"):
             print(f"[radar]   {key} channels 0-5: typical |value| "
                   f"{_channels(errs[key][2])}, max abs err "
                   f"{_channels(errs[key][3])}")
+        # A float64 cube, as the prepare path sends it: cast on the card,
+        # the same bits as from the float32 cube.
+        before = (rr.radar_reduce_ra.launches, rr.radar_reduce_ea.launches)
+        planes = rr.reduce_tesseract(cube.double())
+        if not (torch.equal(planes[0], ra) and torch.equal(planes[1], ea)) \
+                or (rr.radar_reduce_ra.launches,
+                    rr.radar_reduce_ea.launches) != (before[0] + 1,
+                                                     before[1] + 1):
+            raise AssertionError(f"{shape}: reduce_tesseract of the float64 "
+                                 "cube differs from the float32 cube's planes")
+        # The kernel's reading of its layout: any other stride pattern raises.
+        try:
+            rr.radar_reduce_ea(contiguous.permute(1, 0, 2, 3).contiguous()
+                               .permute(1, 0, 2, 3))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("radar_reduce_ea accepted a range-fastest "
+                                 "cube")
+    print("[radar] a float64 doppler-fastest cube through reduce_tesseract "
+          "gives the float32 cube's planes bit for bit at every shape; a "
+          "cube in another layout raises, ok")
     if tuple(ra.shape) != (256, 107, 6) or tuple(ea.shape) != (37, 107, 6):
         raise AssertionError(f"planes {tuple(ra.shape)} {tuple(ea.shape)}")
 
@@ -1573,28 +1642,52 @@ def phase_radar_vs_plain():
     print(f"[radar] numpy on the host: {np_s:.2f} s for one cube")
     _check_limits(rr)
 
-    ra_ms = _cuda_ms(lambda: rr.radar_reduce_ra(cube), reps=20, warmup=2)
-    ea_ms = _cuda_ms(lambda: rr.radar_reduce_ea(cube), reps=20, warmup=2)
-    plain_ms = _cuda_ms(lambda: rr.reduce_tesseract_plain(cube), reps=3,
+    # Times by CUDA events: the kernels on their own layout (no copy before
+    # them), on a C-contiguous cube (the wrapper's layout copy included),
+    # that copy and the float64 -> float32 cast apart, the plain version.
+    times = {}
+    for layout, given in layouts:
+        times[layout] = (
+            _cuda_ms(lambda: rr.radar_reduce_ra(given), reps=20, warmup=2),
+            _cuda_ms(lambda: rr.radar_reduce_ea(given), reps=20, warmup=2))
+    ra_ms, ea_ms = times["doppler-fastest"]
+    copy_ms = _cuda_ms(lambda: rr.to_doppler_fastest(contiguous), reps=10,
+                       warmup=2)
+    cube64 = cube.double()
+    cast_ms = _cuda_ms(lambda: cube64.to(torch.float32), reps=10, warmup=2)
+    cast_bound = 1e3 * 12 * cube.numel() / PEAK_BYTES_PER_S
+    del cube64
+    plain_ms = _cuda_ms(lambda: rr.reduce_tesseract_plain(contiguous), reps=3,
                         warmup=1)
     ra_bound, ea_bound = _radar_bounds(shape)
-    print(f"[radar] {shape} one cube: radar_reduce_ra {ra_ms:.4f} ms (bound "
-          f"{ra_bound[0]:.4f} ms, {ra_bound[1]}), radar_reduce_ea "
-          f"{ea_ms:.4f} ms (bound {ea_bound[0]:.4f} ms, {ea_bound[1]}), "
-          f"plain version of both planes {plain_ms:.3f} ms")
+    print(f"[radar] {shape} one cube, doppler-fastest: radar_reduce_ra "
+          f"{ra_ms:.4f} ms (bound {ra_bound[0]:.4f} ms, {ra_bound[1]}: "
+          f"{ra_ms / ra_bound[0]:.2f} times), radar_reduce_ea {ea_ms:.4f} ms "
+          f"(bound {ea_bound[0]:.4f} ms, {ea_bound[1]}: "
+          f"{ea_ms / ea_bound[0]:.2f} times); C-contiguous, the wrapper's "
+          f"layout copy included: {times['C-contiguous'][0]:.4f} / "
+          f"{times['C-contiguous'][1]:.4f} ms; the layout copy alone "
+          f"{copy_ms:.4f} ms; the float64 -> float32 cast on the card "
+          f"{cast_ms:.4f} ms (bound {cast_bound:.4f} ms, bytes); plain "
+          f"version of both planes {plain_ms:.3f} ms")
 
-    # Host to card: one cube from pageable and from pinned memory; the
-    # bound is the card's own memory rate, which the bus does not reach.
-    pinned = torch.from_numpy(host).pin_memory()
-    pageable = torch.from_numpy(host)
-    copy_bound = 1e3 * host.nbytes / PEAK_BYTES_PER_S
-    page_ms = _cuda_ms(lambda: pageable.to("cuda"), reps=5, warmup=1)
-    pin_ms = _cuda_ms(lambda: pinned.to("cuda", non_blocking=True), reps=5,
-                      warmup=1)
-    print(f"[radar] copy of one cube ({host.nbytes / 1e6:.1f} MB) to the "
-          f"card: pageable {page_ms:.3f} ms ({host.nbytes / page_ms / 1e6:.2f}"
-          f" GB/s), pinned {pin_ms:.3f} ms ({host.nbytes / pin_ms / 1e6:.2f} "
-          f"GB/s); {copy_bound:.4f} ms at the card's memory rate")
+    # Host to card: one cube from pageable and from pinned memory, in
+    # float32 and in float64 (what the prepare path now sends); the bound
+    # is the card's own memory rate, which the bus does not reach.
+    for label, array in (("float32", host),
+                         ("float64", host.astype(np.float64))):
+        pinned = torch.from_numpy(array).pin_memory()
+        pageable = torch.from_numpy(array)
+        copy_bound = 1e3 * array.nbytes / PEAK_BYTES_PER_S
+        page_ms = _cuda_ms(lambda: pageable.to("cuda"), reps=5, warmup=1)
+        pin_ms = _cuda_ms(lambda: pinned.to("cuda", non_blocking=True),
+                          reps=5, warmup=1)
+        print(f"[radar] copy of one {label} cube ({array.nbytes / 1e6:.1f} "
+              f"MB) to the card: pageable {page_ms:.3f} ms "
+              f"({array.nbytes / page_ms / 1e6:.2f} GB/s), pinned "
+              f"{pin_ms:.3f} ms ({array.nbytes / pin_ms / 1e6:.2f} GB/s); "
+              f"{copy_bound:.4f} ms at the card's memory rate")
+        del pinned, pageable
 
     def report(name, line, ms, bound, err):
         # The plain version computes both planes in one call; its time
@@ -1608,6 +1701,43 @@ def phase_radar_vs_plain():
 
     return (report("radar_reduce_ra", 112, ra_ms, ra_bound, max_err["ra"]),
             report("radar_reduce_ea", 163, ea_ms, ea_bound, max_err["ea"]))
+
+
+def phase_radar_kernel_times():
+    """Device time of the radar kernels, the layout copy and the cast on
+    one K-Radar cube, by name (torch.profiler, mean of 10 calls). Runs after
+    every timed phase, as ``phase_launch_counts`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpft_tpu_torch.ops import radar_reduce as rr
+
+    contiguous = torch.from_numpy(_power_cube(KRADAR_CUBE, seed=0)).cuda()
+    cube64 = rr.to_doppler_fastest(contiguous).double()
+
+    def both():
+        rr.reduce_tesseract(cube64)          # cast, then both kernels
+        rr.to_doppler_fastest(contiguous)    # the layout copy
+
+    both()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            both()
+        torch.cuda.synchronize()
+    cells = []
+    for event in prof.key_averages():
+        if event.device_time_total > 0 and \
+                event.device_type == torch.autograd.DeviceType.CUDA:
+            key = event.key
+            name = key[key.find("radar_"):].split("<")[0].split("(")[0] \
+                if "radar_" in key else key.split("<")[0][:48]
+            cells.append(f"{name} "
+                         f"{event.device_time_total / event.count:.1f}")
+    print(f"[kernel times] {KRADAR_CUBE} float64 cube through "
+          "reduce_tesseract (cast + both kernels) and the layout copy of a "
+          f"C-contiguous cube, us per launch: "
+          f"{', '.join(sorted(cells)) or 'not measured'}")
 
 
 def _write_raw_kradar(root):
@@ -1700,9 +1830,13 @@ def phase_prepare(config_path, config, model):
 
         held = torch.cuda.memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
+        # The entry point itself turns TF32 off.
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
         _reset_launches()
         _, run_s = _host_s(lambda: prepare.main(src, config_path, dst))
         launches = _read_launches()
+        _assert_full_float32("prepare.main")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         expected = dict.fromkeys(KERNELS, 0)
         expected.update(radar_reduce_ra=n_frames, radar_reduce_ea=n_frames)
@@ -1759,21 +1893,64 @@ def phase_prepare(config_path, config, model):
         from scipy.io import loadmat
         raw, load_s = _host_s(
             lambda: loadmat(sample["radar_tesseract"])["arrDREA"])
-        host, cast_s = _host_s(lambda: raw.astype(np.float32))
-        cube, copy_s = _host_s(lambda: torch.from_numpy(host).cuda())
+        cube64, copy_s = _host_s(lambda: torch.from_numpy(raw).cuda())
+        cube, cast_s = _host_s(lambda: cube64.to(torch.float32))
         planes, kernel_s = _host_s(lambda: rr.reduce_tesseract(cube))
         planes, back_s = _host_s(lambda: [p.cpu().numpy() for p in planes])
         _, save_s = _host_s(lambda: [
             np.save(os.path.join(again, f"{n}.npy"), p, allow_pickle=False)
             for n, p in zip(("ra", "ea"), planes)])
-        radar_s = load_s + cast_s + copy_s + kernel_s + back_s + save_s
+        radar_s = load_s + copy_s + cast_s + kernel_s + back_s + save_s
         print(f"[prepare] one frame on one worker: {frame_s:.3f} s = loadmat "
-              f"{load_s:.3f} + astype {cast_s:.3f} + copy to the card "
-              f"{copy_s:.4f} + both kernels {kernel_s:.4f} + planes back "
-              f"{back_s:.4f} + ra/ea.npy {save_s:.4f} s (radar "
-              f"{radar_s:.3f} s) + camera, lidar, labels and their files "
-              f"{frame_s - radar_s:.3f} s; the kernels are "
-              f"{100 * kernel_s / frame_s:.2f}% of the frame")
+              f"{load_s:.3f} + copy of the float64 cube to the card "
+              f"{copy_s:.4f} + cast on the card {cast_s:.4f} + both kernels "
+              f"{kernel_s:.4f} + planes back {back_s:.4f} + ra/ea.npy "
+              f"{save_s:.4f} s (radar {radar_s:.3f} s) + camera, lidar, "
+              f"labels and their files {frame_s - radar_s:.3f} s; cast and "
+              f"kernels are {100 * (cast_s + kernel_s) / frame_s:.2f}% of "
+              "the frame")
+        del cube64, cube
+        # The same frame the way it went before: cast on the host, then the
+        # float32 cube over the bus.
+        host, host_cast_s = _host_s(lambda: raw.astype(np.float32))
+        _, host_copy_s = _host_s(lambda: torch.from_numpy(host).cuda())
+        print(f"[prepare]   with the cast on the host instead: astype "
+              f"{host_cast_s:.3f} + copy of the float32 cube "
+              f"{host_copy_s:.4f} s = {host_cast_s + host_copy_s:.3f} s "
+              f"against {copy_s + cast_s:.3f} s")
+        del host, raw
+
+        # What the processor hands to the reduction, and what one worker
+        # holds on the card meanwhile.
+        import dpft_tpu_torch.data.kradar.processor as processor_module
+        seen = []
+
+        def spy(cube):
+            seen.append((cube.dtype, cube.device.type, tuple(cube.stride())))
+            return rr.reduce_tesseract(cube)
+
+        torch.cuda.synchronize()
+        held_now = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        processor_module.reduce_tesseract = spy
+        try:
+            processor.get_radar_data(sample["radar_tesseract"])
+        finally:
+            processor_module.reduce_tesseract = rr.reduce_tesseract
+        worker = (torch.cuda.max_memory_allocated() - held_now) / 2 ** 30
+        want = (torch.float64, "cuda", rr.doppler_fastest_strides(KRADAR_CUBE))
+        if seen != [want]:
+            raise AssertionError(f"the processor handed {seen} to the "
+                                 f"reduction, expected {want}")
+        cube_gib = 4 * math.prod(KRADAR_CUBE) / 2 ** 30
+        if worker > 3 * cube_gib + 0.01:
+            raise AssertionError(f"one worker held {worker:.3f} GiB, more "
+                                 "than a float64 and a float32 cube")
+        print(f"[prepare] the processor sends the cube as loadmat gives it "
+              f"(float64, doppler-fastest, no astype on the host); one "
+              f"worker holds at most {worker:.3f} GiB on the card (a float64"
+              f" cube {2 * cube_gib:.3f} + a float32 cube {cube_gib:.3f} "
+              "GiB)")
 
         # One split back through the port's dataset and loader, one batch
         # through the flagship model.
@@ -1807,10 +1984,18 @@ def phase_prepare(config_path, config, model):
     return launches
 
 
+def _assert_full_float32(after):
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError(f"TF32 is on after {after}")
+
+
 def main():
     phase_device()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # The phases below drive the evaluator and the trainer, not the CLIs'
+    # ``main``, which call this themselves.
+    from dpft_tpu_torch.utils.device import use_full_float32
+    use_full_float32()
     phase_build()
 
     from dpft_tpu_torch.models import registry
@@ -1833,12 +2018,14 @@ def main():
     fwd_report = phase_kernel_vs_plain(view_shapes)
     phase_flagship(config, model)
     paths = {"serve": phase_serve(config, model, view_shapes)}
+    _assert_full_float32("the serve phase")
     bwd_report = phase_bwd_vs_plain(view_shapes)
     phase_train_step_vs_plain(config, model)
     # On the initial weights, as the step above: the train phases leave
     # weights on which one step's gradients are ill-conditioned.
     mm_config, mm_model = phase_mm_model(config, model)
     paths["train"] = phase_train(config, model, view_shapes)
+    _assert_full_float32("the train phase")
     phase_train_timing(config, model)
 
     mm_fwd_report, mm_bwd_report = phase_mm_vs_plain(view_shapes)
@@ -1854,6 +2041,7 @@ def main():
     ra_report, ea_report = phase_radar_vs_plain()
     phase_launch_counts(config, {"default": model, "mm": mm_model})
     phase_kernel_times(view_shapes)
+    phase_radar_kernel_times()
     del mm_model
     torch.cuda.empty_cache()
     paths["prepare"] = phase_prepare(config_path, config, model)

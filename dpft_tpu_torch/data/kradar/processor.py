@@ -266,22 +266,29 @@ class KRadarProcessor:
         ], dtype=self.dtype).T
         return cloud[np.abs(cloud[:, 0]) > 0.01]
 
-    def get_radar_tesseract(self, filename: str) -> np.ndarray:
+    def get_radar_tesseract(self, filename: str,
+                            cast: bool = True) -> np.ndarray:
+        """The (D, R, E, A) cube of a ``.mat`` file, cast to ``self.dtype``
+        on the host unless ``cast`` is false. ``loadmat`` returns float64 in
+        MATLAB's column-major order (doppler fastest); the cast keeps it."""
         from scipy.io import loadmat
-        return loadmat(filename)["arrDREA"].astype(self.dtype)
+        tesseract = loadmat(filename)["arrDREA"]
+        return tesseract.astype(self.dtype) if cast else tesseract
 
     def get_radar_data(self, filename: str):
         """(ra, ea) dual-plane features, reduced on ``self.device``; with
         `use_device=False` by the NumPy path.
 
-        ``loadmat`` returns the cube in MATLAB's column-major order, and
-        ``reduce_tesseract`` makes it contiguous on the device (cheaper
-        than on the host), so a worker holds two cubes there for the
-        length of the call."""
-        tesseract = self.get_radar_tesseract(filename)
+        On the device path the cube goes to the device as ``loadmat``
+        returned it, float64 and doppler-fastest, and ``reduce_tesseract``
+        casts it to float32 there (round to nearest, as numpy's cast) and
+        reads it in that layout with no further copy: a worker holds one
+        float64 and one float32 cube on the device for the length of the
+        call."""
         if not self.use_device:
-            ra, ea = reduce_tesseract_np(tesseract)
+            ra, ea = reduce_tesseract_np(self.get_radar_tesseract(filename))
             return ra.astype(self.dtype), ea.astype(self.dtype)
+        tesseract = self.get_radar_tesseract(filename, cast=False)
         ra, ea = reduce_tesseract(torch.from_numpy(tesseract).to(self.device))
         return (ra.cpu().numpy().astype(self.dtype, copy=False),
                 ea.cpu().numpy().astype(self.dtype, copy=False))

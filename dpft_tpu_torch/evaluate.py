@@ -21,6 +21,7 @@ from dpft_tpu_torch.data import init as init_dataset
 from dpft_tpu_torch.data import load as load_dataset
 from dpft_tpu_torch.evaluation import CentralizedEvaluator
 from dpft_tpu_torch.utils.config import load_config
+from dpft_tpu_torch.utils.device import use_full_float32
 
 
 def set_seed(seed: int) -> None:
@@ -31,6 +32,7 @@ def set_seed(seed: int) -> None:
 
 def main(src: str, cfg: str, checkpoint: str, dst: str,
          device: str = "cuda") -> None:
+    use_full_float32()
     config = load_config(cfg)
     set_seed(config["computing"]["seed"])
     test_dataset = init_dataset(config["dataset"], src=src, split="test",

@@ -70,15 +70,19 @@ def parse_checkpoint_name(path: str) -> Tuple[int, str]:
 
 def checkpoint_config(path: str, fallback: Optional[Dict[str, Any]] = None
                       ) -> Dict[str, Any]:
-    """The ``config.json`` beside the checkpoint, else ``fallback``."""
-    candidate = osp.join(osp.dirname(osp.abspath(path)), "config.json")
-    if osp.isfile(candidate):
-        return load_config(candidate)
+    """The ``config.json`` beside the checkpoint, else the run directory's
+    one level up (where training writes it), else ``fallback``."""
+    here = osp.dirname(osp.abspath(path))
+    candidates = [osp.join(here, "config.json"),
+                  osp.join(osp.dirname(here), "config.json")]
+    for candidate in candidates:
+        if osp.isfile(candidate):
+            return load_config(candidate)
     if fallback is not None:
         return fallback
     raise FileNotFoundError(
-        f"No config found for checkpoint {path} (looked for {candidate}); "
-        "pass one explicitly")
+        f"No config found for checkpoint {path} (looked for "
+        f"{candidates[0]} and {candidates[1]}); pass one explicitly")
 
 
 def load(path: str, config: Optional[Dict[str, Any]] = None,
@@ -86,7 +90,8 @@ def load(path: str, config: Optional[Dict[str, Any]] = None,
          ) -> Tuple[dpft_module.DPFT, Dict[str, Any], int, str]:
     """Loads (model in eval mode, config, epoch, timestamp).
 
-    ``config`` is used only when no ``config.json`` lies beside the file.
+    ``config`` is used only when no ``config.json`` lies beside the file
+    or one level up.
     """
     epoch, timestamp = parse_checkpoint_name(path)
     config = checkpoint_config(path, fallback=config)

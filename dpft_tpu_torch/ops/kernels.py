@@ -109,9 +109,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     # (cube, raster, out, D, R, E, A, stream)
     lib.dpft_radar_reduce_ra.argtypes = [ptr, table, ptr, i32, i32, i32, i32,
                                          ptr]
-    # (cube, raster, scratch, out, D, R, E, A, lo, hi, stream)
-    lib.dpft_radar_reduce_ea.argtypes = [ptr, table, ptr, ptr, i32, i32, i32,
-                                         i32, i32, i32, ptr]
+    # (cube, raster, out, D, R, E, A, lo, hi, stream)
+    lib.dpft_radar_reduce_ea.argtypes = [ptr, table, ptr, i32, i32, i32, i32,
+                                         i32, i32, ptr]
     # (val, x, y, att, out, scratch, scratch_len, bins_ready, dtype,
     #  n_levels, table, B, heads, S, D, loc, att_src, sizes, N, L, P, stream)
     levels, i64 = ctypes.POINTER(ctypes.c_int64), ctypes.c_int64

@@ -22,13 +22,17 @@ doppler_var). The arithmetic, reproduced from the reference:
 ``reduce_tesseract`` dispatches on the device of the cube: a CPU tensor
 takes ``reduce_tesseract_plain``, a CUDA tensor the hand-written kernels of
 ``csrc/radar_reduce.cu`` through ``radar_reduce_ra`` / ``radar_reduce_ea``.
-There is no fallback from a kernel to the plain version.
+There is no fallback from a kernel to the plain version. The kernels read
+the cube doppler-fastest (element strides (1, D, D * R, D * R * E)), the
+layout in which ``scipy.io.loadmat`` returns ``arrDREA``; a C-contiguous
+cube is copied to that layout once, by PyTorch, before the launch.
 ``reduce_tesseract_np`` is the reference's numpy transliteration.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Tuple
 
@@ -142,21 +146,106 @@ def _crop(R: int) -> Tuple[int, int]:
     return lo, hi
 
 
-def _check_cube(name: str, tesseract: torch.Tensor) -> Tuple[int, ...]:
-    """Validates a kernel's input; returns (D, R, E, A)."""
+# Constants of csrc/radar_reduce.cu that the limits below are reckoned from
+# (a test reads them out of the CUDA source and compares).
+MAX_DOPPLER = 64          # kMaxDoppler
+MAX_SHARED_BYTES = 232448  # kMaxSharedBytes: 227 KB
+RA_WARPS = 8              # kRaWarps: range bins per RA block
+RA_SORTED_E = 37          # kRaSortedE: this elevation count sorts in registers
+RA_ROW_FLOATS = 64        # kRaRowFloats
+EA_PARTS = 4              # kEaParts: lanes that share one EA column
+ROW_PAD_MODULUS, ROW_PAD_RESIDUE = 16, 8
+
+
+def row_pad(D: int) -> int:
+    """Floats of one row of the EA kernel's slab in shared memory: the
+    least S >= D with S % 16 == 8."""
+    return D + (ROW_PAD_RESIDUE - D % ROW_PAD_MODULUS) % ROW_PAD_MODULUS
+
+
+def ra_shared_bytes(E: int) -> int:
+    """Shared memory of one RA block: none at 37 elevation bins, where
+    ``radar_ra_sorted_kernel`` keeps the columns in registers."""
+    return 0 if E == RA_SORTED_E else 4 * RA_WARPS * RA_ROW_FLOATS * E
+
+
+def ea_shared_bytes(D: int, rows: int) -> int:
+    """Shared memory of one ``radar_ea_kernel`` block."""
+    return 4 * (rows * row_pad(D) + 3 * MAX_DOPPLER)
+
+
+def doppler_fastest_strides(shape) -> Tuple[int, ...]:
+    """Element strides of a (D, R, E, A) cube whose doppler axis is the
+    fastest: (1, D, D * R, D * R * E), MATLAB's column-major order."""
+    D, R, E, _ = shape
+    return (1, D, D * R, D * R * E)
+
+
+def _has_strides(tesseract: torch.Tensor, strides) -> bool:
+    # The stride of an axis of length 1 addresses nothing.
+    return all(n == 1 or have == want for n, have, want
+               in zip(tesseract.shape, tesseract.stride(), strides))
+
+
+def to_doppler_fastest(tesseract: torch.Tensor) -> torch.Tensor:
+    """The same (D, R, E, A) cube laid out doppler-fastest: as it is when
+    it already has that layout, else one PyTorch copy."""
+    if _has_strides(tesseract, doppler_fastest_strides(tesseract.shape)):
+        return tesseract
+    return tesseract.permute(3, 2, 1, 0).contiguous().permute(3, 2, 1, 0)
+
+
+def _require_card(name: str, tesseract: torch.Tensor) -> None:
     if tesseract.device.type != "cuda":
         raise RuntimeError(f"{name} needs a CUDA tensor, got "
                            f"{tesseract.device}")
+
+
+def _check_cube(name: str, tesseract: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """Validates a kernel's input; returns the cube in the kernel's layout
+    and (D, R, E, A)."""
     if tesseract.dtype != torch.float32:
         raise TypeError(f"{name}: dtype {tesseract.dtype} is not float32")
     if tesseract.ndim != 4:
         raise ValueError(f"{name}: expected a (D, R, E, A) cube, got "
                          f"{tuple(tesseract.shape)}")
-    if not tesseract.is_contiguous():
-        raise ValueError(f"{name}: the cube must be contiguous")
     if 0 in tesseract.shape:
         raise ValueError(f"{name}: empty cube {tuple(tesseract.shape)}")
-    return tuple(tesseract.shape)
+    shape = tuple(tesseract.shape)
+    if not (tesseract.is_contiguous()
+            or _has_strides(tesseract, doppler_fastest_strides(shape))):
+        raise ValueError(
+            f"{name}: the cube must be doppler-fastest (strides "
+            f"{doppler_fastest_strides(shape)}) or C-contiguous, got strides "
+            f"{tuple(tesseract.stride())}")
+    return to_doppler_fastest(tesseract), shape
+
+
+def _check_limits(name: str, shape, shared_bytes: int, formula: str) -> str:
+    """Raises beyond the kernel's limits (the launcher refuses the same
+    shapes); returns the text that names them."""
+    limits = (f"limits: D <= {MAX_DOPPLER}, {formula} bytes of shared memory "
+              f"<= {MAX_SHARED_BYTES}, fewer than 2^31 elements")
+    if (shape[0] > MAX_DOPPLER or shared_bytes > MAX_SHARED_BYTES
+            or math.prod(shape) >= 2 ** 31):
+        raise RuntimeError(f"{name} on {tuple(shape)} needs {shared_bytes} "
+                           f"bytes of shared memory: beyond its {limits}")
+    return limits
+
+
+def _launch(entry: str, cube: torch.Tensor, out: torch.Tensor, *dims: int
+            ) -> int:
+    """Calls the C entry point on the current stream of the cube's device;
+    returns its CUDA error code."""
+    raster = _raster(cube.shape[0])
+    lib = kernels.library()
+    with torch.cuda.device(cube.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return getattr(lib, entry)(
+            cube.data_ptr(),
+            raster.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            out.data_ptr(), *dims, stream)
 
 
 # Guards the launch counts: the processor's worker threads launch at once.
@@ -164,61 +253,55 @@ _COUNT_LOCK = threading.Lock()
 
 
 def radar_reduce_ra(tesseract: torch.Tensor) -> torch.Tensor:
-    """Launches ``radar_ra_kernel`` (``csrc/radar_reduce.cu``).
+    """Launches ``radar_ra_sorted_kernel`` (37 elevation bins, K-Radar's:
+    the medians by a sorting network in registers) or ``radar_ra_kernel``
+    (any other count: the medians by selection passes over shared memory),
+    both of ``csrc/radar_reduce.cu``.
 
-    tesseract: (D, R, E, A) float32 powers, contiguous, on a CUDA device.
-    Returns the RA plane (R, A, 6) float32. Limits, raised beyond:
-    D <= 64 (the raster's bins) and 4 * (96 * D + 512 * E) bytes of shared
-    memory <= 227 KB (E <= 101 at D = 64). Powers are taken as strictly
-    positive: a zero gives -inf dB as in numpy and is not checked (a check
-    would synchronise).
+    tesseract: (D, R, E, A) float32 powers on a CUDA device. The kernel
+    reads the cube doppler-fastest, element strides (1, D, D * R,
+    D * R * E), which is what ``scipy.io.loadmat`` returns for ``arrDREA``;
+    a cube in that layout is taken as it is, with no copy. A C-contiguous
+    cube is brought to it by one PyTorch copy here, outside the kernel; any
+    other stride pattern raises. Returns the RA plane (R, A, 6) float32.
+    Limits, raised beyond: D <= 64 (the raster's bins), 4 * 8 * 64 * E
+    bytes of shared memory <= 227 KB (E <= 113; none at E = 37) and fewer
+    than 2^31 elements. Powers are taken as strictly positive: a zero gives -inf dB as
+    in numpy and is not checked (a check would synchronise).
     """
-    D, R, E, A = _check_cube("radar_reduce_ra", tesseract)
-    raster = _raster(D)
-    lib = kernels.library()
-    out = torch.empty((R, A, 6), dtype=torch.float32,
-                      device=tesseract.device)
-    with torch.cuda.device(tesseract.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dpft_radar_reduce_ra(
-            tesseract.data_ptr(),
-            raster.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            out.data_ptr(), D, R, E, A, stream)
-    kernels.check(code, f"radar_reduce_ra on {(D, R, E, A)} (limits: D <= 64 "
-                        "and 4 * (96 * D + 512 * E) bytes of shared memory "
-                        "<= 227 KB)")
+    _require_card("radar_reduce_ra", tesseract)
+    cube, (D, R, E, A) = _check_cube("radar_reduce_ra", tesseract)
+    limits = _check_limits("radar_reduce_ra", (D, R, E, A),
+                           ra_shared_bytes(E),
+                           f"4 * {RA_WARPS} * {RA_ROW_FLOATS} * E")
+    out = torch.empty((R, A, 6), dtype=torch.float32, device=cube.device)
+    code = _launch("dpft_radar_reduce_ra", cube, out, D, R, E, A)
+    kernels.check(code, f"radar_reduce_ra on {(D, R, E, A)} ({limits})")
     with _COUNT_LOCK:
         radar_reduce_ra.launches += 1
     return out
 
 
 def radar_reduce_ea(tesseract: torch.Tensor) -> torch.Tensor:
-    """Launches ``radar_ea_range_kernel`` and ``radar_ea_doppler_kernel``
-    (``csrc/radar_reduce.cu``), one after the other on the current stream.
+    """Launches ``radar_ea_kernel`` (``csrc/radar_reduce.cu``).
 
-    tesseract as for :func:`radar_reduce_ra`. Returns the EA plane
-    (E, A, 6) float32, reduced over the range rows [4, min(252, R)).
-    Limits, raised beyond: D <= 64 and 4 * rows * A bytes of shared memory
-    <= 227 KB (A <= 234 at 248 rows). A zero power is not checked, as
-    above.
+    tesseract and its layouts as for :func:`radar_reduce_ra`. Returns the
+    EA plane (E, A, 6) float32, reduced over the range rows
+    [4, min(252, R)). Limits, raised beyond: D <= 64, fewer than 2^31
+    elements and 4 * (rows * row_pad(D) + 192) bytes of shared memory
+    <= 227 KB, where ``row_pad(D)`` is the least S >= D with S % 16 == 8
+    (71.6 KB at 248 rows and D = 64; the crop keeps every cube with
+    D <= 64 inside). A zero power is not checked, as above.
     """
-    D, R, E, A = _check_cube("radar_reduce_ea", tesseract)
-    raster = _raster(D)
+    _require_card("radar_reduce_ea", tesseract)
+    cube, (D, R, E, A) = _check_cube("radar_reduce_ea", tesseract)
     lo, hi = _crop(R)
-    lib = kernels.library()
-    scratch = torch.empty((3, D, E, A), dtype=torch.float32,
-                          device=tesseract.device)
-    out = torch.empty((E, A, 6), dtype=torch.float32,
-                      device=tesseract.device)
-    with torch.cuda.device(tesseract.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dpft_radar_reduce_ea(
-            tesseract.data_ptr(),
-            raster.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            scratch.data_ptr(), out.data_ptr(), D, R, E, A, lo, hi, stream)
-    kernels.check(code, f"radar_reduce_ea on {(D, R, E, A)} (limits: D <= 64 "
-                        f"and 4 * {hi - lo} rows * A bytes of shared memory "
-                        "<= 227 KB)")
+    limits = _check_limits("radar_reduce_ea", (D, R, E, A),
+                           ea_shared_bytes(D, hi - lo),
+                           f"4 * ({hi - lo} rows * row_pad(D) + 192)")
+    out = torch.empty((E, A, 6), dtype=torch.float32, device=cube.device)
+    code = _launch("dpft_radar_reduce_ea", cube, out, D, R, E, A, lo, hi)
+    kernels.check(code, f"radar_reduce_ea on {(D, R, E, A)} ({limits})")
     with _COUNT_LOCK:
         radar_reduce_ea.launches += 1
     return out
@@ -229,9 +312,12 @@ def reduce_tesseract(tesseract: torch.Tensor
     """Reduces one (D, R, E, A) cube or a batch (F, D, R, E, A) of cubes.
 
     Returns (ra (.., R, A, 6), ea (.., E, A, 6)) in float32; another
-    floating dtype is cast to float32 first, as the JAX entry does. A CPU
-    tensor takes the plain version; a CUDA tensor the kernels, which raise
-    beyond their limits (see :func:`radar_reduce_ra`,
+    floating dtype is cast to float32 first (on the tensor's device, round
+    to nearest, the strides kept), as the JAX entry does. A CPU tensor takes
+    the plain version; a CUDA tensor the kernels, which read a
+    doppler-fastest cube (what ``loadmat`` gives) as it is, copy a
+    C-contiguous one once for both planes, and raise on any other layout
+    and beyond their limits (see :func:`radar_reduce_ra`,
     :func:`radar_reduce_ea`).
     """
     if tesseract.ndim == 5:
@@ -239,8 +325,18 @@ def reduce_tesseract(tesseract: torch.Tensor
         return (torch.stack([ra for ra, _ in planes]),
                 torch.stack([ea for _, ea in planes]))
     if tesseract.device.type == "cpu":
-        return reduce_tesseract_plain(tesseract)
-    cube = tesseract.to(torch.float32).contiguous()
+        # Contiguous, so that the plain version's sums run in one order
+        # whatever layout the cube came in.
+        return reduce_tesseract_plain(
+            tesseract.to(torch.float32).contiguous())
+    return _reduce_on_card(tesseract)
+
+
+def _reduce_on_card(tesseract: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both kernels on one cube: cast and brought to the kernels' layout
+    once for the two of them."""
+    cube, _ = _check_cube("reduce_tesseract", tesseract.to(torch.float32))
     return radar_reduce_ra(cube), radar_reduce_ea(cube)
 
 

@@ -17,9 +17,11 @@ import argparse
 from dpft_tpu_torch.data import prepare
 from dpft_tpu_torch.evaluate import set_seed
 from dpft_tpu_torch.utils.config import load_config
+from dpft_tpu_torch.utils.device import use_full_float32
 
 
 def main(src: str, cfg: str, dst: str, device: str = "cuda") -> None:
+    use_full_float32()
     config = load_config(cfg)
     set_seed(config["computing"]["seed"])
     config["computing"]["device"] = device

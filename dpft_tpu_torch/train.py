@@ -23,10 +23,12 @@ from dpft_tpu_torch.evaluate import set_seed
 from dpft_tpu_torch.models import registry
 from dpft_tpu_torch.training import trainer as trainer_lib
 from dpft_tpu_torch.utils.config import load_config, save_config
+from dpft_tpu_torch.utils.device import use_full_float32
 
 
 def main(src: str, cfg: str, dst: str, checkpoint: Optional[str] = None,
          device: str = "cuda") -> None:
+    use_full_float32()
     config = load_config(cfg)
     set_seed(config["computing"]["seed"])
     timestamp = trainer_lib.now_timestamp()

@@ -28,3 +28,16 @@ def resolve_device(name: Union[str, torch.device, None]) -> torch.device:
         raise RuntimeError(
             f"device {name!r} asks for the CUDA card, but torch sees none")
     return torch.device("cuda", int(index) if index else 0)
+
+
+def use_full_float32() -> None:
+    """Turns TF32 off for matrix products and for cuDNN's convolutions.
+
+    float32 is the parity dtype: every float32 time and tolerance of the
+    port was taken in full float32, while cuDNN's default is TF32 (about
+    three decimal digits). ``computing.compute_dtype: "bfloat16"`` runs
+    under autocast and is not touched by these flags. The entry points call
+    this before they build anything.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -133,3 +133,54 @@ def test_prepare_cli_needs_the_card_by_default(prepared, tmp_path):
     assert proc.returncode != 0
     assert "CUDA card" in proc.stderr
     assert not osp.exists(dst)
+
+
+def test_device_path_casts_on_the_device_not_on_the_host(prepared,
+                                                         monkeypatch):
+    """With ``use_device`` the cube goes to the device as ``loadmat`` gives
+    it (float64, doppler-fastest) and is cast there: no ``astype`` of the
+    cube on the host. The NumPy path still casts on the host, once."""
+    import scipy.io
+    import torch
+
+    import dpft_tpu_torch.data.kradar.processor as processor_module
+
+    src = prepared[0]
+    mat = osp.join(src, "10", "radar_tesseract",
+                   sorted(os.listdir(osp.join(src, "10",
+                                              "radar_tesseract")))[0])
+    casts, seen = [], []
+
+    class Counting(np.ndarray):
+        def astype(self, dtype, *args, **kwargs):
+            casts.append(np.dtype(dtype))
+            return np.asarray(self).astype(dtype, *args, **kwargs)
+
+    loadmat = scipy.io.loadmat
+
+    def counting_loadmat(filename):
+        return {"arrDREA": loadmat(filename)["arrDREA"].view(Counting)}
+
+    reduce = processor_module.reduce_tesseract
+
+    def spy(cube):
+        seen.append((cube.dtype, tuple(cube.stride())))
+        return reduce(cube)
+
+    monkeypatch.setattr(scipy.io, "loadmat", counting_loadmat)
+    config = base_config()
+    config["computing"]["device"] = "cpu"
+    processor = prepare_dataset("kradar", config)
+    monkeypatch.setattr(processor_module, "reduce_tesseract", spy)
+    ra, ea = processor.get_radar_data(mat)
+    D, R, E, A = TESSERACT_SHAPE
+    assert casts == []
+    assert seen == [(torch.float64, (1, D, D * R, D * R * E))]
+    assert ra.dtype == ea.dtype == np.float32
+    assert ra.shape == (R, A, 6) and ea.shape == (E, A, 6)
+
+    config["data"]["use_device"] = False
+    ra_np, ea_np = prepare_dataset("kradar", config).get_radar_data(mat)
+    assert casts == [np.dtype(np.float32)] and len(seen) == 1
+    np.testing.assert_allclose(ra, ra_np, **TOL)
+    np.testing.assert_allclose(ea, ea_np, **TOL)
