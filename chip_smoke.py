@@ -25,13 +25,20 @@ not 0:
    right after: msda_fwd exactly once per MSDA call, msda_bwd never.
 6. Backward kernel vs plain: ``msda_bwd`` against torch.autograd.grad
    through ``ms_deform_attn_core_plain`` on the same inputs and grad_out,
-   at the small border cases (D = 2, 3) and at the flagship level shapes of
-   all three views at B=4, N=400: f32 within 1e-4 (atomics add in a
-   varying order), bf16 against the f32 plain gradient within 5e-2 of its
-   largest element; the time of one camera-view backward of both.
+   at the small border cases (D = 2, 3), at the flagship level shapes of
+   all three views at B=4, N=400, and in a collision case (the points of
+   every (b, h) in one cell of each level of the smallest view: on its 2x4
+   level 6,400 touches on 4 pixels): f32 within 1e-4 (sums in another
+   order), bf16 against the f32 plain gradient within 5e-2 of its largest
+   element. In every case and dtype a second ``msda_bwd`` call and two
+   backward passes through ``MSDAFunction`` must give the same bits of
+   d_value, d_loc and d_att. The time of one camera-view backward of both.
 7. Train step, kernel model vs plain-core model: config/kradar.json at
    B=4 f32, the same weights, batch and dropout seed; the loss within 1e-4
    (relative) and every parameter gradient within 1e-3 of its largest.
+   Then one forward of that step and its backward twice (retain_graph): the
+   parameters whose gradients differ between the two passes are printed by
+   kind of layer, with those of the last decoder iteration's MSDA layers.
 8. Train path (the second main path): CentralizedTrainer over 4 synthetic
    B=4 batches for 2 epochs with a 2-batch validation loader, metrics on;
    finite losses, changed parameters, validation metrics, one checkpoint
@@ -87,8 +94,14 @@ not 0:
    gather form's one-sided, so the two forms differ by design (reported,
    not held); and, after every timed phase, the
    kernels, copies and memsets that one forward of the default and of the
-   mm model puts on the card, and the device time of every MSDA kernel of
-   one call per view under both backends, by name (torch.profiler).
+   mm model puts on the card, the device time of every MSDA kernel of
+   one call per view under both backends, by name (torch.profiler), and
+   one call of ``msda_fwd`` and of ``msda_bwd`` per view at B=1 and B=4 in
+   f32 and bf16: ms by CUDA events and us on the card by the profiler,
+   every kernel, fill and cast of the call summed, beside the bound of the
+   call. ``python3 chip_smoke.py --msda-times DIR`` runs only that, on the
+   package of the checkout in DIR (another commit, for a comparison in one
+   run).
 14. Radar kernels vs plain: ``radar_reduce_ra`` / ``radar_reduce_ea``
    against ``reduce_tesseract_plain`` on the card at seven small cubes (two
    with a doppler axis that is no multiple of 4, one cropped at 252 range
@@ -147,6 +160,7 @@ The last two lines are the kernel report and the result:
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -157,7 +171,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, ROOT)
+# ``--msda-times DIR``: only the per-view MSDA call times, of the package in
+# DIR (a checkout of another commit), to compare two commits in one run.
+MSDA_TIMES_ONLY = sys.argv[1:2] == ["--msda-times"]
+sys.path.insert(0, os.path.abspath(sys.argv[2]) if MSDA_TIMES_ONLY else ROOT)
 
 # Flagship MSDA geometry of config/kradar.json (per view).
 B1, N_QUERIES, HEADS, HEAD_DIM, POINTS = 1, 400, 8, 2, 4
@@ -331,9 +348,26 @@ def phase_build():
                              f"{da.MM_TILE}")
     print(f"[build] {os.path.relpath(info.path, ROOT)} in {seconds:.2f} s "
           f"(nvcc {info.seconds:.2f} s)")
+    # ptxas names each function (mangled) before its spills and registers.
+    name = "?"
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
+        if "Function properties for" in line:
+            name = _kernel_name(line.split()[-1])
+        elif "registers" in line or "spill" in line:
+            print(f"[build]   {name}: {line.strip()}")
+
+
+def _kernel_name(mangled):
+    """``msda_bwd_value_kernelIfLi2EE`` of a mangled name: the identifier
+    that ends in ``_kernel`` (mangled names prefix each one with its
+    length) and its template arguments, still mangled."""
+    for m in re.finditer(r"\d+", mangled):
+        for k in range(m.start(), m.end()):  # a hash may run into the length
+            ident = mangled[m.end():m.end() + int(mangled[k:m.end()])]
+            if ident.endswith("_kernel") and ident.isidentifier():
+                args = re.match(r"I\w*?EE", mangled[m.end() + len(ident):])
+                return ident + (args.group() if args else "")
+    return mangled
 
 
 def _msda_inputs(shapes, B, N, H, D, P, dtype, lo, hi, seed):
@@ -560,6 +594,87 @@ def phase_kernel_times(view_shapes):
                       f"launch: {', '.join(sorted(cells)) or 'not measured'}")
 
 
+def _device_us(fn, reps=10):
+    """Time of one call of ``fn`` on the card in us by torch.profiler (mean
+    of ``reps`` calls): how long at least one kernel, fill or copy that it
+    puts on the card was running (work on two streams at once counts once),
+    and each one's own time by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names, spans = {}, []
+    for event in prof.events():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (event.time_range.start, event.time_range.end)
+        spans.append(span)
+        key = event.name
+        name = (key[key.find("msda"):] if "msda" in key
+                else key).split("<")[0].split("(")[0][:40]
+        names[name] = names.get(name, 0.0) + (span[1] - span[0]) / reps
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted(spans):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / reps, names
+
+
+def phase_msda_call_times(view_shapes):
+    """One MSDA call of each view through ``msda_fwd`` and ``msda_bwd`` at
+    B=1 and B=4: ms by CUDA events and the card's own time by the profiler,
+    the backward's fills and casts included, beside the bound of the call
+    (forward: sampled value sectors, locations, weights read once and the
+    output written once, or 10 operations per corner and channel; backward:
+    those and grad_out read once, d_value written whole, d_loc and d_att
+    written once, or 30 operations per corner and channel). Events first:
+    the profiler runs after every timed phase, as ``phase_kernel_times``."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    cells = {}
+    for view, shapes in view_shapes.items():
+        for B in (B1, B_TRAIN):
+            value, loc, att = _msda_inputs(shapes, B, N_QUERIES, HEADS,
+                                           HEAD_DIM, POINTS, torch.float32,
+                                           -0.2, 1.2, seed=6)
+            grad = torch.randn(B, N_QUERIES, HEADS * HEAD_DIM, device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(7))
+            sampled = _msda_value_bytes(value, shapes, loc)
+            out_bytes = B * N_QUERIES * HEADS * HEAD_DIM * 4
+            corners = 4 * att.numel() * HEAD_DIM
+            bounds = (_bound(sampled + _nbytes(loc, att) + out_bytes,
+                             10 * corners),
+                      _bound(sampled + 2 * _nbytes(loc, att) + out_bytes
+                             + _nbytes(value), 30 * corners))
+            calls = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                args = (value.to(dtype), shapes, loc, att.to(dtype))
+                g = grad.to(dtype)
+                calls["fwd", dtype] = lambda args=args: da.msda_fwd(*args)
+                calls["bwd", dtype] = lambda args=args, g=g: da.msda_bwd(
+                    *args, g)
+            with torch.inference_mode():
+                events = {k: _cuda_ms(fn, reps=50) for k, fn in calls.items()}
+            cells[view, B] = (calls, events, bounds)
+    for (view, B), (calls, events, bounds) in cells.items():
+        parts = []
+        for (what, dtype), fn in calls.items():
+            with torch.inference_mode():
+                us, names = _device_us(fn)
+            split = ", ".join(f"{n} {t:.1f}" for n, t in sorted(names.items()))
+            parts.append(f"{what} {str(dtype)[6:]} {events[what, dtype]:.4f} "
+                         f"ms by events, {us:.1f} us on the card ({split})")
+        (f_ms, f_by), (b_ms, b_by) = bounds
+        print(f"[msda calls] {view} B={B}: {'; '.join(parts)}; bound (f32) "
+              f"fwd {1e3 * f_ms:.2f} us ({f_by}), bwd {1e3 * b_ms:.2f} us "
+              f"({b_by})")
+
+
 class _Loader:
     """Synthetic batches with K-Radar targets, in memory."""
 
@@ -624,15 +739,40 @@ def _plain_grads(value, shapes, loc, att, grad_out):
     return torch.autograd.grad(out, inputs, grad_out.float())
 
 
+def _same_bits_twice(what, args, got):
+    """``msda_bwd`` on ``args`` once more, and the gradients of
+    ``MSDAFunction`` twice by autograd, must give the bits of ``got``."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    value, shapes, loc, att, grad_out = args
+    runs = {"msda_bwd again": da.msda_bwd(*args)}
+    for k in ("once", "twice"):
+        leaves = [t.detach().requires_grad_(True) for t in (value, loc, att)]
+        out = da.ms_deform_attn_core(leaves[0], shapes, *leaves[1:])
+        runs[f"MSDAFunction {k}"] = torch.autograd.grad(out, leaves, grad_out)
+    for run, grads in runs.items():
+        for name, a, b in zip(("d_value", "d_loc", "d_att"), got, grads):
+            if not torch.equal(a, b):
+                raise AssertionError(f"msda_bwd {what}: {name} of {run} "
+                                     "differs from the first call's bits")
+
+
 def phase_bwd_vs_plain(view_shapes):
     """Returns the kernel report entry of msda_bwd."""
     from dpft_tpu_torch.ops import deform_attn as da
 
     max_err = 0.0
     times = None
-    for case, shapes, B, N, H, D, P in _msda_cases(view_shapes, B_TRAIN):
+    # The collision case: the points of every (b, h) on few pixels of each
+    # level (2 x 2 of the smallest view's 2x4 level), for one call.
+    small = min(view_shapes.values(), key=lambda s: sum(h * w for h, w in s))
+    cases = [(*case, (-0.2, 1.2)) for case in _msda_cases(view_shapes,
+                                                          B_TRAIN)]
+    cases.append(("collide", small, B_TRAIN, N_QUERIES, HEADS, HEAD_DIM,
+                  POINTS, (0.45, 0.55)))
+    for case, shapes, B, N, H, D, P, (lo, hi) in cases:
         value, loc, att = _msda_inputs(shapes, B, N, H, D, P, torch.float32,
-                                       -0.2, 1.2, seed=1)
+                                       lo, hi, seed=1)
         grad_out = torch.randn(B, N, H * D, device="cuda",
                                generator=torch.Generator("cuda").manual_seed(2))
         want = _plain_grads(value, shapes, loc, att, grad_out)
@@ -640,6 +780,7 @@ def phase_bwd_vs_plain(view_shapes):
             args = (value.to(dtype), shapes, loc, att.to(dtype),
                     grad_out.to(dtype))
             got = da.msda_bwd(*args)
+            _same_bits_twice(f"{case} {str(dtype)[6:]}", args, got)
             torch.cuda.synchronize()
             errs = []
             for name, g, w in zip(("d_value", "d_loc", "d_att"), got, want):
@@ -661,7 +802,8 @@ def phase_bwd_vs_plain(view_shapes):
                 if dtype == torch.float32:
                     max_err = max(max_err, err)
             print(f"[msda_bwd] {case} B={B} {str(dtype)[6:]} "
-                  f"{' '.join(errs)} (tol {BWD_TOL[dtype]}) ok")
+                  f"{' '.join(errs)} (tol {BWD_TOL[dtype]}); the same bits "
+                  "again and twice through MSDAFunction, ok")
         if case == "camera_mono":
             args = (value, shapes, loc, att, grad_out)
             k_ms = _cuda_ms(lambda: da.msda_bwd(*args), reps=20)
@@ -749,6 +891,55 @@ def phase_train_step_vs_plain(config, model):
     finally:
         msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
     _compare_steps("kernel model", "plain-core model", step, ref_step)
+
+
+def phase_step_backward_twice(config, model):
+    """One flagship train step's forward at B=4 f32, then its backward twice
+    (``retain_graph``): prints every parameter whose gradient differs
+    between the two passes, by kind of layer, and which of the MSDA layers
+    of the last decoder iteration (``value_proj``, ``sampling_offsets``,
+    ``attention_weights``, ``output_proj``) do. Reported, not held: the
+    kernels' own bits are held in phase 6."""
+    from dpft_tpu_torch.training import CentralizedTrainer
+
+    trainer = CentralizedTrainer.from_config(config)
+    batch, targets = _cuda_batch(config, seed=20)
+    model.train()
+    torch.manual_seed(3)
+    out = model(batch)
+    total, _ = trainer.loss_fn(out, targets,
+                               indices=trainer.loss_fn.match(out, targets))
+    names, params = zip(*((k, p) for k, p in model.named_parameters()
+                          if p.requires_grad))
+    first = torch.autograd.grad(total, params, retain_graph=True,
+                                allow_unused=True)
+    second = torch.autograd.grad(total, params, allow_unused=True)
+    differ = {}
+    for name, a, b in zip(names, first, second):
+        if a is not None and not torch.equal(a, b):
+            differ[name] = ((a - b).abs().max()
+                            / a.abs().max().clamp_min(1e-30)).item()
+    last = "fusion%d" % max(int(m[1]) for k in names
+                            if (m := re.match(r"fuser\.mpfusion\.fusion(\d+)",
+                                              k)))
+    held = [k for k in names if f".{last}." in k and ".ms_deform_attn." in k]
+    if not held:
+        raise AssertionError(f"no MSDA parameters in {last}")
+    groups = {}  # one line per kind of layer: iterations and views merged
+    for name in differ:
+        group = re.sub(r"(fusion|ms_deform_attn)\d+", r"\1*", name)
+        group = re.sub(r"\.(\d+)\.", ".*.", group.rsplit(".", 1)[0])
+        groups.setdefault(group, []).append(name)
+    moved = [k for k in held if k in differ]
+    print(f"[train] B={B_TRAIN} f32 step, backward twice on one forward: "
+          f"{len(differ)} of {len(names)} parameter gradients differ; of the "
+          f"{len(held)} MSDA parameters of {last}, {len(moved)} differ "
+          f"{moved}")
+    for group, members in sorted(groups.items()):
+        worst = max(differ[k] for k in members)
+        print(f"[train]   differ: {group}: {len(members)} parameters, worst "
+              f"{worst:.3e} of its max ({members[0]}, ...)")
+    model.zero_grad(set_to_none=True)
 
 
 def phase_train(config, model, view_shapes, label="train", epochs=2,
@@ -1990,20 +2181,12 @@ def _assert_full_float32(after):
         raise AssertionError(f"TF32 is on after {after}")
 
 
-def main():
-    phase_device()
-    # The phases below drive the evaluator and the trainer, not the CLIs'
-    # ``main``, which call this themselves.
-    from dpft_tpu_torch.utils.device import use_full_float32
-    use_full_float32()
-    phase_build()
-
+def _flagship_model(config):
+    """config/kradar.json built on the card from seed 0, and the level
+    shapes of its three views."""
     from dpft_tpu_torch.models import registry
     from dpft_tpu_torch.utils.example import example_batch
 
-    config_path = os.path.join(ROOT, "config", "kradar.json")
-    with open(config_path) as f:
-        config = json.load(f)
     t0 = time.perf_counter()
     model = registry.build(config["model"]["name"], config, device="cuda",
                            seed=0)
@@ -2012,8 +2195,24 @@ def main():
     with torch.inference_mode():
         views = model.features(_to_cuda(example_batch(config, B=1,
                                                       cam_hw=(512, 910))))
-    view_shapes = dict(zip(model.inputs, (shapes for _, shapes in views)))
-    del views
+    return model, dict(zip(model.inputs, (shapes for _, shapes in views)))
+
+
+def main():
+    phase_device()
+    # The phases below drive the evaluator and the trainer, not the CLIs'
+    # ``main``, which call this themselves.
+    from dpft_tpu_torch.utils.device import use_full_float32
+    use_full_float32()
+    phase_build()
+
+    config_path = os.path.join(ROOT, "config", "kradar.json")
+    with open(config_path) as f:
+        config = json.load(f)
+    if MSDA_TIMES_ONLY:
+        phase_msda_call_times(_flagship_model(config)[1])
+        return
+    model, view_shapes = _flagship_model(config)
 
     fwd_report = phase_kernel_vs_plain(view_shapes)
     phase_flagship(config, model)
@@ -2021,6 +2220,7 @@ def main():
     _assert_full_float32("the serve phase")
     bwd_report = phase_bwd_vs_plain(view_shapes)
     phase_train_step_vs_plain(config, model)
+    phase_step_backward_twice(config, model)
     # On the initial weights, as the step above: the train phases leave
     # weights on which one step's gradients are ill-conditioned.
     mm_config, mm_model = phase_mm_model(config, model)
@@ -2041,6 +2241,7 @@ def main():
     ra_report, ea_report = phase_radar_vs_plain()
     phase_launch_counts(config, {"default": model, "mm": mm_model})
     phase_kernel_times(view_shapes)
+    phase_msda_call_times(view_shapes)
     phase_radar_kernel_times()
     del mm_model
     torch.cuda.empty_cache()

@@ -14,8 +14,11 @@ map contribute zero.
  - ``"gather"`` (the default): four corner gathers per point. A CPU tensor
    takes ``ms_deform_attn_core_plain`` (PyTorch autograd gives its
    gradient), a CUDA tensor the hand-written kernels through
-   ``MSDAFunction``: forward ``csrc/msda_fwd.cu`` (``msda_fwd``), backward
-   ``csrc/msda_bwd.cu`` (``msda_bwd``).
+   ``MSDAFunction``: forward ``csrc/msda_fwd.cu`` (``msda_fwd``, a group of
+   lanes per query and head, the points spread over the lanes), backward
+   ``csrc/msda_bwd.cu`` (``msda_bwd``: d_value summed in one fixed order per
+   batch, head and level, without float atomics, so that two runs give the
+   same bits).
  - ``"mm"``: the per-level hybrid of the JAX package's ``pallas_mm``
    backend. A level with ``h + w <= _MATMUL_MAX_HW`` is sampled in matmul
    form, as two dense relu-distance products (``sample_level_fused``: no
@@ -98,7 +101,9 @@ def ms_deform_attn_core(value: torch.Tensor, spatial_shapes: Shapes,
 
 class MSDAFunction(torch.autograd.Function):
     """The CUDA kernels as one differentiable op: forward ``msda_fwd``,
-    backward ``msda_bwd`` (gradients of value, locations and attention)."""
+    backward ``msda_bwd`` (gradients of value, locations and attention).
+    Every output and gradient is summed in a fixed order, so the op gives
+    the same bits on the same inputs."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations,
@@ -421,6 +426,36 @@ class MSDAMMFunction(torch.autograd.Function):
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The gather-form kernels' limits (csrc/msda_fwd.cu, csrc/msda_bwd.cu:
+# kMaxLevels, kMaxPoints, kMaxSide).
+MSDA_MAX_LEVELS = 16
+MSDA_MAX_POINTS = 2048
+MSDA_MAX_SIDE = 32767
+_MSDA_LIMITS = (f"limits: at most {MSDA_MAX_LEVELS} levels of at most "
+                f"{MSDA_MAX_SIDE} x {MSDA_MAX_SIDE} pixels and "
+                f"{MSDA_MAX_POINTS} sampling points N * P per batch, head "
+                "and level")
+
+
+def check_msda_limits(name: str, spatial_shapes: Shapes, N: int, P: int,
+                      backward: bool) -> None:
+    """Raises where the gather-form kernel refuses the call (its launcher
+    returns cudaErrorInvalidValue there): the forward takes 1 to
+    ``MSDA_MAX_LEVELS`` levels, the backward also at most
+    ``MSDA_MAX_POINTS`` points N * P per batch, head and level and levels of
+    at most ``MSDA_MAX_SIDE`` pixels a side."""
+    L = len(spatial_shapes)
+    ok = 1 <= L <= MSDA_MAX_LEVELS
+    if backward:
+        ok = ok and N * P <= MSDA_MAX_POINTS and all(
+            max(h, w) <= MSDA_MAX_SIDE for h, w in spatial_shapes)
+    if not ok:
+        what = (_MSDA_LIMITS if backward else
+                f"limits: at most {MSDA_MAX_LEVELS} levels")
+        raise ValueError(f"{name}: L={L}, N * P={N * P}, levels "
+                         f"{list(spatial_shapes)} are beyond the kernel's "
+                         f"{what}; nothing was launched")
+
 
 def _check_inputs(name: str, value: torch.Tensor, spatial_shapes: Shapes,
                   sampling_locations: torch.Tensor,
@@ -475,6 +510,7 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
     B, Len, H, D, N, L, P = _check_inputs(
         "msda_fwd", value, spatial_shapes, sampling_locations,
         attention_weights)
+    check_msda_limits("msda_fwd", spatial_shapes, N, P, backward=False)
     lib = kernels.library()
     out = torch.empty((B, N, H * D), dtype=value.dtype, device=value.device)
     with torch.cuda.device(value.device):  # the launch uses the current one
@@ -498,8 +534,15 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
     Inputs as for :func:`msda_fwd`, plus ``grad_out`` (B, N, H * D) in the
     value dtype. Returns ``d_value`` (B, Len, H, D) in the value dtype,
     ``d_loc`` (B, N, H, L, P, 2) float32 and ``d_att`` (B, N, H, L, P) in
-    the value dtype. ``d_value`` is summed with float32 atomics, into a
-    float32 buffer that is cast once for a bfloat16 value.
+    the value dtype. Every element of ``d_value`` is a float32 sum in one
+    fixed order (per batch, head and level: on a level of at most 512
+    pixels per warp, then over the warps in order; on a larger level in the
+    order of the sampling points), with no float atomics, rounded once to
+    the value dtype: two calls on the same inputs give the same bits. The
+    launch zero-fills the rows of the larger levels only, whose blocks
+    write just the pixels that sampling points touch; a block of a smaller
+    level writes all of its pixels. Beyond the limits
+    (:func:`check_msda_limits`) it raises and launches nothing.
     """
     B, Len, H, D, N, L, P = _check_inputs(
         "msda_bwd", value, spatial_shapes, sampling_locations,
@@ -507,9 +550,9 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
     if tuple(grad_out.shape) != (B, N, H * D):
         raise ValueError(f"msda_bwd: grad_out {tuple(grad_out.shape)} != "
                          f"{(B, N, H * D)}")
+    check_msda_limits("msda_bwd", spatial_shapes, N, P, backward=True)
     lib = kernels.library()
-    d_value = torch.zeros(value.shape, dtype=torch.float32,
-                          device=value.device)
+    d_value = torch.empty_like(value)
     d_loc = torch.empty_like(sampling_locations)
     d_att = torch.empty_like(attention_weights)
     with torch.cuda.device(value.device):
@@ -522,7 +565,7 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
             _shape_array(spatial_shapes), stream)
     kernels.check(code, "msda_bwd launch")
     msda_bwd.launches += 1
-    return d_value.to(value.dtype), d_loc, d_att
+    return d_value, d_loc, d_att
 
 
 def mm_tile_counts(h: int, w: int) -> Tuple[int, int]:

@@ -118,6 +118,12 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_grad():
     args[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="CUDA"):
         port.msda_fwd(*args)
+    # The backward writes d_value in the value dtype, bfloat16 too: still
+    # no computation on the CPU.
+    bf16 = [args[0].detach().bfloat16(), SHAPES, args[2],
+            args[3].bfloat16(), grad_out.bfloat16()]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port.msda_bwd(*bf16)
 
 
 def test_kernel_build_raises_without_nvcc(tmp_path, monkeypatch):
