@@ -28,7 +28,9 @@ not 0:
    at the small border cases (D = 2, 3), at the flagship level shapes of
    all three views at B=4, N=400, and in a collision case (the points of
    every (b, h) in one cell of each level of the smallest view: on its 2x4
-   level 6,400 touches on 4 pixels): f32 within 1e-4 (sums in another
+   level 6,400 touches on 4 pixels), and with 900 queries at B=1 (points
+   that the value kernel takes in two chunks per block) in the camera view
+   and in the collision case: f32 within 1e-4 (sums in another
    order), bf16 against the f32 plain gradient within 5e-2 of its largest
    element. In every case and dtype a second ``msda_bwd`` call and two
    backward passes through ``MSDAFunction`` must give the same bits of
@@ -99,9 +101,7 @@ not 0:
    one call of ``msda_fwd`` and of ``msda_bwd`` per view at B=1 and B=4 in
    f32 and bf16: ms by CUDA events and us on the card by the profiler,
    every kernel, fill and cast of the call summed, beside the bound of the
-   call. ``python3 chip_smoke.py --msda-times DIR`` runs only that, on the
-   package of the checkout in DIR (another commit, for a comparison in one
-   run).
+   call.
 14. Radar kernels vs plain: ``radar_reduce_ra`` / ``radar_reduce_ea``
    against ``reduce_tesseract_plain`` on the card at seven small cubes (two
    with a doppler axis that is no multiple of 4, one cropped at 252 range
@@ -171,10 +171,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# ``--msda-times DIR``: only the per-view MSDA call times, of the package in
-# DIR (a checkout of another commit), to compare two commits in one run.
-MSDA_TIMES_ONLY = sys.argv[1:2] == ["--msda-times"]
-sys.path.insert(0, os.path.abspath(sys.argv[2]) if MSDA_TIMES_ONLY else ROOT)
+sys.path.insert(0, ROOT)
 
 # Flagship MSDA geometry of config/kradar.json (per view).
 B1, N_QUERIES, HEADS, HEAD_DIM, POINTS = 1, 400, 8, 2, 4
@@ -770,6 +767,13 @@ def phase_bwd_vs_plain(view_shapes):
                                                           B_TRAIN)]
     cases.append(("collide", small, B_TRAIN, N_QUERIES, HEADS, HEAD_DIM,
                   POINTS, (0.45, 0.55)))
+    # 900 queries (as DETR-style decoders take): 3,600 points per (b, h,
+    # level), which the value kernel takes in two chunks.
+    large = max(view_shapes.values(), key=lambda s: sum(h * w for h, w in s))
+    cases.append(("camera_900q", large, 1, 900, HEADS, HEAD_DIM, POINTS,
+                  (-0.2, 1.2)))
+    cases.append(("collide_900q", small, 1, 900, HEADS, HEAD_DIM, POINTS,
+                  (0.45, 0.55)))
     for case, shapes, B, N, H, D, P, (lo, hi) in cases:
         value, loc, att = _msda_inputs(shapes, B, N, H, D, P, torch.float32,
                                        lo, hi, seed=1)
@@ -2209,9 +2213,6 @@ def main():
     config_path = os.path.join(ROOT, "config", "kradar.json")
     with open(config_path) as f:
         config = json.load(f)
-    if MSDA_TIMES_ONLY:
-        phase_msda_call_times(_flagship_model(config)[1])
-        return
     model, view_shapes = _flagship_model(config)
 
     fwd_report = phase_kernel_vs_plain(view_shapes)

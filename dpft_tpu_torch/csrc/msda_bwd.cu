@@ -26,13 +26,11 @@
 // other at one block per SM, and on a large level its hash table's
 // shared-memory atomics take most of its time. The fill is bound by bytes.
 //
-// Design. One launch of the wrapper is a fill and two kernels, neither with
-// a float atomic.
+// Design. One launch of the wrapper is two kernels and a fill, all on the
+// caller's stream, with no float atomic.
 //   1. msda_bwd_point_kernel, a thread per sampling point (as one thread per
 //      point did before): the four corners and grad_out give d_att and
-//      d_loc, which no two points share. It runs on a second stream that
-//      forks from the caller's before the fill and joins it after the value
-//      kernel, so that it overlaps them.
+//      d_loc, which no two points share.
 //   2. The rows of the hashed levels (below) are zero-filled
 //      (cudaMemset2DAsync: a level's positions [start, start + h * w) of all
 //      heads are one run of bytes per batch element; consecutive such
@@ -42,12 +40,14 @@
 //      sector for every element of its (b, h) slice, whose elements lie
 //      H * D apart.
 //   3. msda_bwd_value_kernel, a block of kThreads threads per (level, b, h),
-//      level-major so that the blocks of the largest level start first. Its
-//      threads load the locations and weights of the (b, h, level)'s N * P
+//      level-major so that the blocks of the largest level start first. It
+//      takes the (b, h, level)'s N * P points kMaxPoints at a time, a chunk,
+//      in order. Its threads load the locations and weights of a chunk's
 //      points at once (thread (w, lane) takes points 32 kPoints w + 32 k +
-//      lane) and keep each point's fractions and att * g in shared memory;
-//      corner c of point i is touch 4 i + c, keyed by its pixel (a corner
-//      outside the map adds nothing). Then, by the size of the level:
+//      lane of the chunk) and keep each point's fractions and att * g in
+//      shared memory; corner c of point i of the chunk is touch 4 i + c,
+//      keyed by its pixel (a corner outside the map adds nothing). Then, by
+//      the size of the level:
 //      - dense (at most kDensePixels pixels, where many touches fall on few
 //        pixels: the front view's 2x4 level takes 6,400 per (b, h) on 8):
 //        warp w keeps a float32 sum per pixel in shared memory and adds its
@@ -67,6 +67,10 @@
 //        its pixel's touches in touch order, whatever order the inserts took;
 //        thread t sums the runs of slots t, t + kThreads, ... in that order
 //        in float32 and writes each pixel once, in the value dtype.
+//      From the second chunk on (more than kMaxPoints points, as with more
+//      than 512 queries at P = 4), a pixel's sum is added to what d_value
+//      holds, in chunk order: a float32 d_value is the same float32 sum, a
+//      bfloat16 one is rounded once per chunk.
 //      The blocks of the largest levels take the longest: at 512x910 the
 //      slots' runs are mostly one touch long, and the writes lie H * D
 //      elements apart, a 32-byte sector each. At the flagship shapes the
@@ -87,22 +91,21 @@
 // still carries a location gradient.
 //
 // Types. d_value and d_att have the value dtype, d_loc is float32; every sum
-// is float32, rounded once when it is written.
+// is float32, rounded once when it is written (d_value of a bfloat16 value
+// with more than kMaxPoints points per (b, h, level): once per chunk).
 //
 // Limits: at most kMaxLevels levels, each at most kMaxSide pixels high and
-// wide; N * P at most kMaxPoints sampling points per (b, h, level); any D
-// (channels two at a time where D is even). The value kernel: sizeof(Shared),
-// about 168 KB of shared memory (opt-in; the dense route's sums and the
-// hash table share it), and at most 64 registers: one block of 1024 threads
-// per SM. The point kernel: no shared memory, 256 threads a block. Beyond
+// wide; any N, P and D (channels two at a time where D is even). The value
+// kernel: sizeof(Shared), about 168 KB of shared memory (opt-in; the dense
+// route's sums and the hash table share it), and at most 64 registers: one
+// block of 1024 threads per SM. The point kernel: no shared memory, 256 threads a block. Beyond
 // the limits the launcher returns cudaErrorInvalidValue and launches
 // nothing; no level falls back to another route.
 //
 // Plain C interface, bound from Python with ctypes
-// (dpft_tpu_torch/ops/kernels.py); the kernel runs on the caller's stream.
+// (dpft_tpu_torch/ops/kernels.py); the kernels run on the caller's stream.
 
 #include <cstdint>
-#include <mutex>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,7 +116,7 @@ constexpr int kMaxLevels = 16;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPoints = 2;  // points per thread
-constexpr int kMaxPoints = kThreads * kPoints;
+constexpr int kMaxPoints = kThreads * kPoints;  // a chunk of points
 constexpr int kTouches = 4 * kPoints;  // touches per thread
 constexpr int kDensePixels = 512;
 constexpr int kSlots = 4 * kMaxPoints;  // of the hash table: one per touch
@@ -194,6 +197,19 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst,
   } else {
     *dst = __float2bfloat16(v[0]);
   }
+}
+
+// Stores v, or with `add` (a later chunk of points) adds it to what dst
+// holds first.
+template <int VD, typename T>
+__device__ __forceinline__ void put(T* dst, float (&v)[VD], bool add) {
+  if (add) {
+    float old[VD];
+    load<VD>(dst, old);
+#pragma unroll
+    for (int u = 0; u < VD; ++u) v[u] = old[u] + v[u];
+  }
+  store<VD>(dst, v);
 }
 
 __device__ __forceinline__ void store_scalar(float* dst, float v) { *dst = v; }
@@ -353,7 +369,6 @@ msda_bwd_value_kernel(const float* __restrict__ loc,
   const int wl = p.w[l];
   const unsigned hw = static_cast<unsigned>(hl) * wl;
   const unsigned none = hw;  // the key of a touch that adds nothing
-  const int NP = p.N * p.P;
   const bool dense = hw <= kDensePixels;
   const bool direct = hw <= kSlots;  // a slot per pixel: no probing
 
@@ -364,206 +379,216 @@ msda_bwd_value_kernel(const float* __restrict__ loc,
             static_cast<int64_t>(h) * p.D;
   const T* g = grad_out + (static_cast<int64_t>(b) * p.N * p.H + h) * p.D;
 
-  if (!dense) {
-    for (int i = tid; i < kSlots; i += kThreads) {
-      sh.hash.key[i] = kEmpty;
-      sh.hash.fill[i] = 0;
-    }
-  }
+  // The chunks of kMaxPoints points, in order; every chunk's sums but the
+  // first are added to what d_value holds.
+  const int all = p.N * p.P;
+  for (int base = 0; base < all; base += kMaxPoints) {
+    const int NP = min(kMaxPoints, all - base);
+    const bool add = base > 0;
 
-  // 1. Point i = 32 kPoints w + 32 k + lane is item k of the lane: its
-  // location and weight (all loads in flight at once), its corner, and its
-  // fractions in shared memory.
-  float a[kPoints];
-  int n[kPoints], x0[kPoints], y0[kPoints];
-  bool ok[kPoints];
-#pragma unroll
-  for (int k = 0; k < kPoints; ++k) {
-    const int i = warp * 32 * kPoints + k * 32 + lane;
-    n[k] = min(i, NP - 1) / p.P;
-    // (b, n, h, l, p) of the (B, N, H, L, P) layout.
-    const int64_t pi =
-        ((static_cast<int64_t>(b) * p.N + n[k]) * p.H + h) * p.L * p.P +
-        static_cast<int64_t>(l) * p.P + min(i, NP - 1) % p.P;
-    const float x =
-        __fsub_rn(__fmul_rn(loc[2 * pi], static_cast<float>(wl)), 0.5f);
-    const float y =
-        __fsub_rn(__fmul_rn(loc[2 * pi + 1], static_cast<float>(hl)), 0.5f);
-    a[k] = to_float(att[pi]);
-    // Some corner is in the map iff x in [-1, w) and y in [-1, h).
-    ok[k] = i < NP && x >= -1.f && x < static_cast<float>(wl) &&
-            y >= -1.f && y < static_cast<float>(hl);
-    const float x0f = floorf(ok[k] ? x : 0.f);
-    const float y0f = floorf(ok[k] ? y : 0.f);
-    x0[k] = static_cast<int>(x0f);
-    y0[k] = static_cast<int>(y0f);
-    if (i < NP) {
-      sh.lx[i] = x - x0f;
-      sh.ly[i] = y - y0f;
-    }
-  }
-  // The touches: corner c of item k is touch 4 i + c, keyed by its pixel
-  // (`none` outside the map).
-  unsigned keys[kTouches];
-#pragma unroll
-  for (int k = 0; k < kPoints; ++k) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int x = x0[k] + (c & 1), y = y0[k] + (c >> 1);
-      keys[4 * k + c] = ok[k] && x >= 0 && x < wl && y >= 0 && y < hl
-                            ? static_cast<unsigned>(y * wl + x)
-                            : none;
-    }
-  }
-  __syncthreads();
-
-  // 2. Hashed route: every distinct pixel gets a slot (the slot depends on
-  // the order of the inserts, the sums below do not), its touches are
-  // counted, placed in the slot's run of `placed`, and then put in touch
-  // order: a touch's rank is the number of touches of its slot with a
-  // smaller id. Integer work only.
-  int slot[kTouches];
-  if (!dense) {
-#pragma unroll
-    for (int k = 0; k < kTouches; ++k) {
-      slot[k] = -1;
-      if (keys[k] == none) continue;
-      unsigned s = keys[k];
-      if (direct) {
-        sh.hash.key[s] = keys[k];  // every writer stores the same key
-      } else {
-        s = (keys[k] * 2654435761u) & (kSlots - 1);
-        for (;;) {
-          const unsigned old = atomicCAS(&sh.hash.key[s], kEmpty, keys[k]);
-          if (old == kEmpty || old == keys[k]) break;
-          s = (s + 1) & (kSlots - 1);
-        }
+    if (!dense) {
+      for (int i = tid; i < kSlots; i += kThreads) {
+        sh.hash.key[i] = kEmpty;
+        sh.hash.fill[i] = 0;
       }
-      slot[k] = static_cast<int>(s);
-      atomicAdd(&sh.hash.fill[s], 1);
     }
-    __syncthreads();
-    for (int i = tid; i < kSlots; i += kThreads) {
-      sh.hash.start[i] = sh.hash.fill[i];
-      sh.hash.fill[i] = 0;
-    }
-    __syncthreads();
-    block_scan(sh.hash.start, sh.warp_sums);
-#pragma unroll
-    for (int k = 0; k < kTouches; ++k) {
-      if (slot[k] < 0) continue;
-      const int at =
-          sh.hash.start[slot[k]] + atomicAdd(&sh.hash.fill[slot[k]], 1);
-      sh.hash.placed[at] = static_cast<unsigned short>(
-          4 * (warp * 32 * kPoints + (k / 4) * 32 + lane) + k % 4);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTouches; ++k) {
-      if (slot[k] < 0) continue;
-      const unsigned id = 4 * (warp * 32 * kPoints + (k / 4) * 32 + lane) +
-                          k % 4;
-      const int begin = sh.hash.start[slot[k]];
-      const int end = begin + sh.hash.fill[slot[k]];
-      int rank = 0;
-      for (int j = begin; j < end; ++j) rank += sh.hash.placed[j] < id;
-      sh.hash.ordered[begin + rank] = static_cast<unsigned short>(id);
-    }
-  }
 
-  for (int d0 = 0; d0 < p.D; d0 += VD) {
-    // att * g of the channels d0 .. d0 + VD - 1, per point.
+    // 1. Point i = 32 kPoints w + 32 k + lane of the chunk is item k of the
+    // lane: its location and weight (all loads in flight at once), its
+    // corner, and its fractions in shared memory.
+    float a[kPoints];
+    int n[kPoints], x0[kPoints], y0[kPoints];
+    bool ok[kPoints];
 #pragma unroll
     for (int k = 0; k < kPoints; ++k) {
       const int i = warp * 32 * kPoints + k * 32 + lane;
-      float gd[VD];
-      load<VD>(g + n[k] * row + d0, gd);
+      const int q = base + min(i, NP - 1);  // n * P + p
+      n[k] = q / p.P;
+      // (b, n, h, l, p) of the (B, N, H, L, P) layout.
+      const int64_t pi =
+          ((static_cast<int64_t>(b) * p.N + n[k]) * p.H + h) * p.L * p.P +
+          static_cast<int64_t>(l) * p.P + q % p.P;
+      const float x =
+          __fsub_rn(__fmul_rn(loc[2 * pi], static_cast<float>(wl)), 0.5f);
+      const float y =
+          __fsub_rn(__fmul_rn(loc[2 * pi + 1], static_cast<float>(hl)), 0.5f);
+      a[k] = to_float(att[pi]);
+      // Some corner is in the map iff x in [-1, w) and y in [-1, h).
+      ok[k] = i < NP && x >= -1.f && x < static_cast<float>(wl) &&
+              y >= -1.f && y < static_cast<float>(hl);
+      const float x0f = floorf(ok[k] ? x : 0.f);
+      const float y0f = floorf(ok[k] ? y : 0.f);
+      x0[k] = static_cast<int>(x0f);
+      y0[k] = static_cast<int>(y0f);
+      if (i < NP) {
+        sh.lx[i] = x - x0f;
+        sh.ly[i] = y - y0f;
+      }
+    }
+    // The touches: corner c of item k is touch 4 i + c, keyed by its pixel
+    // (`none` outside the map).
+    unsigned keys[kTouches];
 #pragma unroll
-      for (int v = 0; v < VD; ++v) {
-        if (i < NP) sh.ag[v][i] = a[k] * gd[v];
+    for (int k = 0; k < kPoints; ++k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int x = x0[k] + (c & 1), y = y0[k] + (c >> 1);
+        keys[4 * k + c] = ok[k] && x >= 0 && x < wl && y >= 0 && y < hl
+                              ? static_cast<unsigned>(y * wl + x)
+                              : none;
       }
     }
     __syncthreads();
-    // The contribution of touch `id` (point id / 4, corner id % 4: 00, 01,
-    // 10, 11) to channels d0 ..
-    auto touch = [&](unsigned id, float (&c)[VD]) {
-      const int i = static_cast<int>(id >> 2);
-      const float lx = sh.lx[i], ly = sh.ly[i];
-      const float w = ((id & 1) ? lx : 1.f - lx) * ((id & 2) ? ly : 1.f - ly);
-#pragma unroll
-      for (int v = 0; v < VD; ++v) c[v] = sh.ag[v][i] * w;
-    };
 
+    // 2. Hashed route: every distinct pixel gets a slot (the slot depends on
+    // the order of the inserts, the sums below do not), its touches are
+    // counted, placed in the slot's run of `placed`, and then put in touch
+    // order: a touch's rank is the number of touches of its slot with a
+    // smaller id. Integer work only.
+    int slot[kTouches];
     if (!dense) {
-      // Thread t sums the slots t, t + kThreads, ..., each one's touches in
-      // touch order, and writes the pixel.
-      for (int s = tid; s < kSlots; s += kThreads) {
-        const unsigned key = sh.hash.key[s];
-        if (key == kEmpty) continue;
-        const int begin = sh.hash.start[s];
-        const int end = begin + sh.hash.fill[s];
-        float sum[VD], c[VD];
 #pragma unroll
-        for (int v = 0; v < VD; ++v) sum[v] = 0.f;
-        for (int j = begin; j < end; ++j) {
-          touch(sh.hash.ordered[j], c);
-#pragma unroll
-          for (int v = 0; v < VD; ++v) sum[v] += c[v];
+      for (int k = 0; k < kTouches; ++k) {
+        slot[k] = -1;
+        if (keys[k] == none) continue;
+        unsigned s = keys[k];
+        if (direct) {
+          sh.hash.key[s] = keys[k];  // every writer stores the same key
+        } else {
+          s = (keys[k] * 2654435761u) & (kSlots - 1);
+          for (;;) {
+            const unsigned old = atomicCAS(&sh.hash.key[s], kEmpty, keys[k]);
+            if (old == kEmpty || old == keys[k]) break;
+            s = (s + 1) & (kSlots - 1);
+          }
         }
-        store<VD>(dlev + key * row + d0, sum);
+        slot[k] = static_cast<int>(s);
+        atomicAdd(&sh.hash.fill[s], 1);
       }
-      __syncthreads();  // before the next channels overwrite sh.ag
-      continue;
+      __syncthreads();
+      for (int i = tid; i < kSlots; i += kThreads) {
+        sh.hash.start[i] = sh.hash.fill[i];
+        sh.hash.fill[i] = 0;
+      }
+      __syncthreads();
+      block_scan(sh.hash.start, sh.warp_sums);
+#pragma unroll
+      for (int k = 0; k < kTouches; ++k) {
+        if (slot[k] < 0) continue;
+        const int at =
+            sh.hash.start[slot[k]] + atomicAdd(&sh.hash.fill[slot[k]], 1);
+        sh.hash.placed[at] = static_cast<unsigned short>(
+            4 * (warp * 32 * kPoints + (k / 4) * 32 + lane) + k % 4);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kTouches; ++k) {
+        if (slot[k] < 0) continue;
+        const unsigned id = 4 * (warp * 32 * kPoints + (k / 4) * 32 + lane) +
+                            k % 4;
+        const int begin = sh.hash.start[slot[k]];
+        const int end = begin + sh.hash.fill[slot[k]];
+        int rank = 0;
+        for (int j = begin; j < end; ++j) rank += sh.hash.placed[j] < id;
+        sh.hash.ordered[begin + rank] = static_cast<unsigned short>(id);
+      }
     }
 
-    // Dense route: warp w adds its touches, step k taking touch k of every
-    // lane, into its own sums per pixel: the lanes of one pixel are added
-    // in lane order by their lowest lane, which reads the others' values
-    // from the warp's stage, and adds the result. Then every pixel is the
-    // sum over the warps in warp order, zeros included.
-    float* acc = sh.dense.acc[warp];
-    float* stage = sh.dense.stage[warp];
-    for (unsigned q = lane; q < hw * VD; q += 32) acc[q] = 0.f;
+    for (int d0 = 0; d0 < p.D; d0 += VD) {
+      // att * g of the channels d0 .. d0 + VD - 1, per point.
 #pragma unroll
-    for (int k = 0; k < kTouches; ++k) {
-      const unsigned key = keys[k];
-      float c[VD];
-      if (key != none) {
-        touch(4 * (warp * 32 * kPoints + (k / 4) * 32 + lane) + k % 4, c);
-      } else {
+      for (int k = 0; k < kPoints; ++k) {
+        const int i = warp * 32 * kPoints + k * 32 + lane;
+        float gd[VD];
+        load<VD>(g + n[k] * row + d0, gd);
 #pragma unroll
-        for (int v = 0; v < VD; ++v) c[v] = 0.f;
+        for (int v = 0; v < VD; ++v) {
+          if (i < NP) sh.ag[v][i] = a[k] * gd[v];
+        }
       }
+      __syncthreads();
+      // The contribution of touch `id` (point id / 4, corner id % 4: 00, 01,
+      // 10, 11) to channels d0 ..
+      auto touch = [&](unsigned id, float (&c)[VD]) {
+        const int i = static_cast<int>(id >> 2);
+        const float lx = sh.lx[i], ly = sh.ly[i];
+        const float w =
+            ((id & 1) ? lx : 1.f - lx) * ((id & 2) ? ly : 1.f - ly);
 #pragma unroll
-      for (int v = 0; v < VD; ++v) stage[v * 32 + lane] = c[v];
-      const unsigned group = peers_of(key, p.bits[l]);
-      __syncwarp();
-      if (key != none && (group & ((1u << lane) - 1u)) == 0) {
+        for (int v = 0; v < VD; ++v) c[v] = sh.ag[v][i] * w;
+      };
+
+      if (!dense) {
+        // Thread t sums the slots t, t + kThreads, ..., each one's touches in
+        // touch order, and writes the pixel.
+        for (int s = tid; s < kSlots; s += kThreads) {
+          const unsigned key = sh.hash.key[s];
+          if (key == kEmpty) continue;
+          const int begin = sh.hash.start[s];
+          const int end = begin + sh.hash.fill[s];
+          float sum[VD], c[VD];
+#pragma unroll
+          for (int v = 0; v < VD; ++v) sum[v] = 0.f;
+          for (int j = begin; j < end; ++j) {
+            touch(sh.hash.ordered[j], c);
+#pragma unroll
+            for (int v = 0; v < VD; ++v) sum[v] += c[v];
+          }
+          put<VD>(dlev + key * row + d0, sum, add);
+        }
+        __syncthreads();  // before the next channels overwrite sh.ag
+        continue;
+      }
+
+      // Dense route: warp w adds its touches, step k taking touch k of every
+      // lane, into its own sums per pixel: the lanes of one pixel are added
+      // in lane order by their lowest lane, which reads the others' values
+      // from the warp's stage, and adds the result. Then every pixel is the
+      // sum over the warps in warp order, zeros included.
+      float* acc = sh.dense.acc[warp];
+      float* stage = sh.dense.stage[warp];
+      for (unsigned q = lane; q < hw * VD; q += 32) acc[q] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTouches; ++k) {
+        const unsigned key = keys[k];
+        float c[VD];
+        if (key != none) {
+          touch(4 * (warp * 32 * kPoints + (k / 4) * 32 + lane) + k % 4, c);
+        } else {
+#pragma unroll
+          for (int v = 0; v < VD; ++v) c[v] = 0.f;
+        }
+#pragma unroll
+        for (int v = 0; v < VD; ++v) stage[v * 32 + lane] = c[v];
+        const unsigned group = peers_of(key, p.bits[l]);
+        __syncwarp();
+        if (key != none && (group & ((1u << lane) - 1u)) == 0) {
+          float s[VD];
+#pragma unroll
+          for (int v = 0; v < VD; ++v) s[v] = 0.f;
+          for (unsigned m = group; m; m &= m - 1u) {
+            const int src = __ffs(m) - 1;
+#pragma unroll
+            for (int v = 0; v < VD; ++v) s[v] += stage[v * 32 + src];
+          }
+#pragma unroll
+          for (int v = 0; v < VD; ++v) acc[key * VD + v] += s[v];
+        }
+        __syncwarp();
+      }
+      __syncthreads();
+      for (unsigned q = tid; q < hw; q += kThreads) {
         float s[VD];
 #pragma unroll
         for (int v = 0; v < VD; ++v) s[v] = 0.f;
-        for (unsigned m = group; m; m &= m - 1u) {
-          const int src = __ffs(m) - 1;
+        for (int u = 0; u < kWarps; ++u) {
 #pragma unroll
-          for (int v = 0; v < VD; ++v) s[v] += stage[v * 32 + src];
+          for (int v = 0; v < VD; ++v) s[v] += sh.dense.acc[u][q * VD + v];
         }
-#pragma unroll
-        for (int v = 0; v < VD; ++v) acc[key * VD + v] += s[v];
+        put<VD>(dlev + q * row + d0, s, add);
       }
-      __syncwarp();
+      __syncthreads();  // before the next channels overwrite the sums
     }
-    __syncthreads();
-    for (unsigned q = tid; q < hw; q += kThreads) {
-      float s[VD];
-#pragma unroll
-      for (int v = 0; v < VD; ++v) s[v] = 0.f;
-      for (int u = 0; u < kWarps; ++u) {
-#pragma unroll
-        for (int v = 0; v < VD; ++v) s[v] += sh.dense.acc[u][q * VD + v];
-      }
-      store<VD>(dlev + q * row + d0, s);
-    }
-    __syncthreads();  // before the next channels overwrite the sums
   }
 }
 
@@ -590,68 +615,34 @@ cudaError_t fill_hashed_levels(void* d_value, const MsdaParams& p,
   return cudaSuccess;
 }
 
-// A second stream per device, on which the point kernel runs beside the
-// fill and the value kernel.
-cudaStream_t side_stream() {
-  static cudaStream_t streams[64] = {};
-  static std::mutex lock;
-  int device = 0;
-  if (cudaGetDevice(&device) != cudaSuccess || device >= 64) return nullptr;
-  std::lock_guard<std::mutex> guard(lock);
-  if (streams[device] == nullptr) {
-    cudaStreamCreateWithFlags(&streams[device], cudaStreamNonBlocking);
-  }
-  return streams[device];
-}
-
-// The fill and the value kernel on the caller's stream `s`; the point
-// kernel on a second stream that forks from `s` before them and joins it
-// after them.
+// The point kernel, the fill and the value kernel, on the caller's stream.
 template <typename T>
 cudaError_t launch(const void* value, const float* loc, const void* att,
                    const void* grad_out, void* d_value, float* d_loc,
                    void* d_att, const MsdaParams& p, bool pairs,
                    cudaStream_t s) {
-  cudaStream_t side = side_stream();
-  if (side == nullptr) return cudaErrorInvalidValue;
-  cudaEvent_t fork, join;
-  cudaError_t err = cudaEventCreateWithFlags(&fork, cudaEventDisableTiming);
-  if (err != cudaSuccess) return err;
-  err = cudaEventCreateWithFlags(&join, cudaEventDisableTiming);
-  if (err != cudaSuccess) return err;
-
   auto run = [&](auto value_kernel, auto point_kernel) {
     cudaError_t e = cudaFuncSetAttribute(
         value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(sizeof(Shared)));
-    if (e == cudaSuccess) e = cudaEventRecord(fork, s);
-    if (e == cudaSuccess) e = cudaStreamWaitEvent(side, fork, 0);
     if (e != cudaSuccess) return e;
     const int64_t points = static_cast<int64_t>(p.B) * p.N * p.H * p.L * p.P;
     point_kernel<<<static_cast<unsigned>((points + kPointThreads - 1) /
                                          kPointThreads),
-                   kPointThreads, 0, side>>>(
+                   kPointThreads, 0, s>>>(
         static_cast<const T*>(value), loc, static_cast<const T*>(att),
         static_cast<const T*>(grad_out), d_loc, static_cast<T*>(d_att), p);
     e = cudaGetLastError();
-    if (e == cudaSuccess) e = cudaEventRecord(join, side);
-    if (e != cudaSuccess) return e;
-    e = fill_hashed_levels(d_value, p, sizeof(T), s);
+    if (e == cudaSuccess) e = fill_hashed_levels(d_value, p, sizeof(T), s);
     if (e != cudaSuccess) return e;
     value_kernel<<<static_cast<unsigned>(p.L * p.B * p.H), kThreads,
                    sizeof(Shared), s>>>(
         loc, static_cast<const T*>(att), static_cast<const T*>(grad_out),
         static_cast<T*>(d_value), p);
-    e = cudaGetLastError();
-    if (e == cudaSuccess) e = cudaStreamWaitEvent(s, join, 0);
-    return e;
+    return cudaGetLastError();
   };
-  err = pairs ? run(msda_bwd_value_kernel<T, 2>, msda_bwd_point_kernel<T, 2>)
-              : run(msda_bwd_value_kernel<T, 1>, msda_bwd_point_kernel<T, 1>);
-  // Released once the work recorded on them is done.
-  cudaEventDestroy(fork);
-  cudaEventDestroy(join);
-  return err;
+  return pairs ? run(msda_bwd_value_kernel<T, 2>, msda_bwd_point_kernel<T, 2>)
+               : run(msda_bwd_value_kernel<T, 1>, msda_bwd_point_kernel<T, 1>);
 }
 
 }  // namespace
@@ -666,8 +657,7 @@ int dpft_msda_bwd(const void* value, const float* loc, const void* att,
                   const void* grad_out, void* d_value, float* d_loc,
                   void* d_att, int dtype, int B, int Len, int H, int D, int N,
                   int L, int P, const int* shapes, void* stream) {
-  if (L < 1 || L > kMaxLevels || (dtype != 0 && dtype != 1) ||
-      static_cast<int64_t>(N) * P > kMaxPoints) {
+  if (L < 1 || L > kMaxLevels || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int l = 0; l < L; ++l) {
@@ -695,11 +685,12 @@ int dpft_msda_bwd(const void* value, const float* loc, const void* att,
     }
   }
   if (start != Len) return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<int64_t>(B) * N * H * D == 0) return 0;
+  if (static_cast<int64_t>(B) * Len * H * D == 0) return 0;  // no d_value
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t item = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
-  if (P == 0) {  // no sampling point: d_value is 0, d_loc and d_att empty
+  if (N == 0 || P == 0) {  // no sampling point: d_value is 0, d_loc and
+                           // d_att empty
     return static_cast<int>(cudaMemsetAsync(
         d_value, 0, static_cast<size_t>(B) * Len * H * D * item, s));
   }

@@ -427,28 +427,23 @@ class MSDAMMFunction(torch.autograd.Function):
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The gather-form kernels' limits (csrc/msda_fwd.cu, csrc/msda_bwd.cu:
-# kMaxLevels, kMaxPoints, kMaxSide).
+# kMaxLevels, kMaxSide).
 MSDA_MAX_LEVELS = 16
-MSDA_MAX_POINTS = 2048
 MSDA_MAX_SIDE = 32767
 _MSDA_LIMITS = (f"limits: at most {MSDA_MAX_LEVELS} levels of at most "
-                f"{MSDA_MAX_SIDE} x {MSDA_MAX_SIDE} pixels and "
-                f"{MSDA_MAX_POINTS} sampling points N * P per batch, head "
-                "and level")
+                f"{MSDA_MAX_SIDE} x {MSDA_MAX_SIDE} pixels")
 
 
 def check_msda_limits(name: str, spatial_shapes: Shapes, N: int, P: int,
                       backward: bool) -> None:
     """Raises where the gather-form kernel refuses the call (its launcher
     returns cudaErrorInvalidValue there): the forward takes 1 to
-    ``MSDA_MAX_LEVELS`` levels, the backward also at most
-    ``MSDA_MAX_POINTS`` points N * P per batch, head and level and levels of
-    at most ``MSDA_MAX_SIDE`` pixels a side."""
+    ``MSDA_MAX_LEVELS`` levels, the backward also only levels of at most
+    ``MSDA_MAX_SIDE`` pixels a side. Any number of points N * P."""
     L = len(spatial_shapes)
     ok = 1 <= L <= MSDA_MAX_LEVELS
     if backward:
-        ok = ok and N * P <= MSDA_MAX_POINTS and all(
-            max(h, w) <= MSDA_MAX_SIDE for h, w in spatial_shapes)
+        ok = ok and all(max(h, w) <= MSDA_MAX_SIDE for h, w in spatial_shapes)
     if not ok:
         what = (_MSDA_LIMITS if backward else
                 f"limits: at most {MSDA_MAX_LEVELS} levels")
@@ -537,8 +532,10 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
     the value dtype. Every element of ``d_value`` is a float32 sum in one
     fixed order (per batch, head and level: on a level of at most 512
     pixels per warp, then over the warps in order; on a larger level in the
-    order of the sampling points), with no float atomics, rounded once to
-    the value dtype: two calls on the same inputs give the same bits. The
+    order of the sampling points; more than 2,048 points N * P per batch,
+    head and level in chunks of 2,048, in order), with no float atomics,
+    rounded once to the value dtype (a bfloat16 one once per chunk): two
+    calls on the same inputs give the same bits. The
     launch zero-fills the rows of the larger levels only, whose blocks
     write just the pixels that sampling points touch; a block of a smaller
     level writes all of its pixels. Beyond the limits

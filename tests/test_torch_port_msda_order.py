@@ -4,15 +4,18 @@ csrc/msda_fwd.cu gives every (b, n, h) a group of G lanes (the smallest
 power of two that holds the L * P points, at most 32): lane j sums the
 points j, j + G, ... of the flattened (level, point) axis in that order, and
 the lanes combine by a ``__shfl_xor_sync`` tree. csrc/msda_bwd.cu gives
-every (level, b, h) a block of kThreads threads, kPoints points each; corner
-c of point i is touch 4 i + c, keyed by its pixel. On a level of at most
+every (level, b, h) a block of kThreads threads, kPoints points each, which
+takes the N * P points kMaxPoints at a time (a chunk) in order; corner c of
+point i of a chunk is touch 4 i + c, keyed by its pixel. On a level of at most
 kDensePixels pixels each warp adds its threads' touches into its own sums
 per pixel, step k taking touch k of every lane, the lanes of one pixel in
 lane order; the warps' sums are then added in warp order, zeros included.
 On a larger level each touched pixel's touches are added in touch order
 (the kernel finds them through a hash table and ranks them by id, integer
 work only), and the rows of such levels are zero-filled before the launch,
-consecutive levels in one fill.
+consecutive levels in one fill. From the second chunk on, each sum is added
+to what d_value holds. With no sampling point the launcher zero-fills all of
+d_value.
 
 No kernel runs here, so this file holds a PyTorch / numpy emulation of both
 decompositions, with the constants read out of the CUDA sources, against
@@ -60,6 +63,7 @@ THREADS = _constant("kThreads", "msda_bwd.cu")
 WARPS = THREADS // 32
 POINTS = _constant("kPoints", "msda_bwd.cu")   # per thread
 TOUCHES = 4 * POINTS
+CHUNK = THREADS * POINTS  # kMaxPoints: the points a block takes at a time
 DENSE_PIXELS = _constant("kDensePixels", "msda_bwd.cu")
 
 
@@ -86,6 +90,8 @@ CASES = [
     ("one_pixel", ((3, 5), (1, 1)), 2, 2, 7, 3, 4),
     ("fill_route", ((65, 64), (64, 64), (2, 3)), 2, 1, 40, 2, 4),
     ("mm_gather_level", ((512, 910),), 2, 1, 400, 2, 4),
+    # 900 queries (DETR-style decoders): two chunks per block.
+    ("collide_chunks", ((24, 30), (2, 4)), 2, 1, 900, 2, 4),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -257,10 +263,11 @@ def _hashed_sums(keys, contrib, none):
 
 def ordered_backward(value, shapes, loc, att, grad, block_order=None,
                     dtype=torch.float32):
-    """csrc/msda_bwd.cu's arithmetic and order: a level of at most
-    kDensePixels pixels by per-warp sums, a larger one by pixel in touch
-    order. Returns d_value, d_loc, d_att (numpy). d_value starts as NaN, so
-    that an element that neither the fill nor a block writes shows.
+    """csrc/msda_bwd.cu's arithmetic and order: per chunk of kMaxPoints
+    points, a level of at most kDensePixels pixels by per-warp sums, a
+    larger one by pixel in touch order; a later chunk's sums added to what
+    d_value holds. Returns d_value, d_loc, d_att (numpy). d_value starts as
+    NaN, so that an element that neither a fill nor a block writes shows.
     ``block_order``: the order in which the (level, b, h) blocks are
     emulated (default: launch order). ``dtype``: that of value, att, grad
     and d_value; sums are float32, rounded once."""
@@ -271,10 +278,9 @@ def ordered_backward(value, shapes, loc, att, grad, block_order=None,
     B, Len, H, D = value.shape
     N, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
     NP = N * P
-    assert NP <= THREADS * TOUCHES // 4
     x, y = _pixels(loc, shapes)
     d_value = torch.full((B, Len, H, D), float("nan"))
-    for first, end in fill_ranges(shapes):
+    for first, end in fill_ranges(shapes) if NP else [(0, Len)]:
         d_value[:, first:end] = 0.0
     d_loc = torch.zeros(B, N, H, L, P, 2)
     d_att = torch.zeros(B, N, H, L, P)
@@ -308,19 +314,26 @@ def ordered_backward(value, shapes, loc, att, grad, block_order=None,
             inside, wl * a * dlx, zero).view(N, P)
         d_loc[b, :, hd, lvl, :, 1] = torch.where(
             inside, hl * a * dly, zero).view(N, P)
-        # d_value: touch 4 i + c keyed by its pixel (hw outside the map).
-        keys = np.full(4 * THREADS * POINTS, hw, np.int64)
-        contrib = np.zeros((4 * THREADS * POINTS, D), np.float32)
+        # d_value: touch 4 i + c keyed by its pixel (hw outside the map),
+        # i counted from the start of the chunk.
         ag = (a[:, None] * gq).numpy()
-        for c, ((q, ok), wgt) in enumerate(zip(corners, (w00, w01, w10,
-                                                          w11))):
-            keys[c:4 * NP:4] = np.where(ok.numpy(), q.numpy(), hw)
-            contrib[c:4 * NP:4] = ag * wgt.numpy()[:, None]
-        sums = (_dense_sums if hw <= DENSE_PIXELS else _hashed_sums)(
-            keys, contrib, hw)
-        for pixel, s in sums.items():
-            d_value[b, start + pixel, hd] = torch.from_numpy(s).to(
-                dtype).float()
+        for base in range(0, NP, CHUNK):
+            m = min(CHUNK, NP - base)
+            keys = np.full(4 * CHUNK, hw, np.int64)
+            contrib = np.zeros((4 * CHUNK, D), np.float32)
+            for c, ((q, ok), wgt) in enumerate(zip(corners, (w00, w01, w10,
+                                                              w11))):
+                part = slice(base, base + m)
+                keys[c:4 * m:4] = np.where(ok[part].numpy(), q[part].numpy(),
+                                           hw)
+                contrib[c:4 * m:4] = ag[part] * wgt[part].numpy()[:, None]
+            sums = (_dense_sums if hw <= DENSE_PIXELS else _hashed_sums)(
+                keys, contrib, hw)
+            for pixel, s in sums.items():
+                s = torch.from_numpy(s)
+                if base:
+                    s = d_value[b, start + pixel, hd] + s
+                d_value[b, start + pixel, hd] = s.to(dtype).float()
     rounded = d_att.to(dtype).float()
     return d_value.numpy(), d_loc.numpy(), rounded.numpy()
 
@@ -376,7 +389,11 @@ def test_constants_are_those_of_the_cuda_sources():
     assert _constant("kMaxLevels", "msda_bwd.cu") == port.MSDA_MAX_LEVELS
     assert "constexpr int kMaxPoints = kThreads * kPoints;" in bwd
     assert "constexpr int kTouches = 4 * kPoints;" in bwd
-    assert THREADS * POINTS == port.MSDA_MAX_POINTS
+    # The chunks of points: every chunk's sums but the first added.
+    assert "for (int base = 0; base < all; base += kMaxPoints) {" in bwd
+    assert "const bool add = base > 0;" in bwd
+    assert bwd.count("put<VD>(dlev + ") == 2 and "store<VD>(dlev" not in bwd
+    assert "v[u] = old[u] + v[u];" in bwd
     assert _constant("kMaxSide", "msda_bwd.cu") == port.MSDA_MAX_SIDE
     assert "constexpr int kWarps = kThreads / 32;" in bwd
     assert "const bool dense = hw <= kDensePixels;" in bwd
@@ -482,7 +499,8 @@ def test_ordered_backward_matches_plain_and_jax(case, emulated):
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c[0] in (
-    "random_d3", "collide", "collide_hashed", "far_and_nan", "fill_route")],
+    "random_d3", "collide", "collide_hashed", "collide_chunks", "far_and_nan",
+    "fill_route")],
     ids=lambda c: c[0])
 def test_backward_bits_do_not_depend_on_block_order(case, emulated):
     (value, loc, att, grad), want = emulated(case)
@@ -543,13 +561,13 @@ def test_bf16_sums_are_float32_rounded_once(case):
     (((32767, 1),), 2048, 1, True, True),
     (((32768, 1),), 10, 4, True, False),
     (((1, 32768),), 10, 4, False, True),
-    (((8, 8),), 513, 4, True, False),
-    (((8, 8),), 513, 4, False, True),
+    (((8, 8),), 900, 4, True, True),
+    (((8, 8),), 900, 4, False, True),
 ])
 def test_limits_refuse_what_the_launchers_refuse(shapes, N, P, backward, ok):
     """``check_msda_limits`` raises, naming the limits, exactly where
     ``dpft_msda_fwd`` / ``dpft_msda_bwd`` return cudaErrorInvalidValue:
-    levels, points per (b, h, level) and a level's side (backward only)."""
+    levels and a level's side (backward only); any number of points."""
     name = "msda_bwd" if backward else "msda_fwd"
     if ok:
         port.check_msda_limits(name, shapes, N, P, backward)
@@ -558,7 +576,29 @@ def test_limits_refuse_what_the_launchers_refuse(shapes, N, P, backward, ok):
             port.check_msda_limits(name, shapes, N, P, backward)
     launcher = (CSRC / f"{name}.cu").read_text()
     assert "return static_cast<int>(cudaErrorInvalidValue);" in launcher
+    assert "kMaxPoints) {\n    return" not in launcher
     if backward:
-        assert "static_cast<int64_t>(N) * P > kMaxPoints" in launcher
         assert "shapes[2 * l] > kMaxSide || shapes[2 * l + 1] > kMaxSide" \
             in launcher
+
+
+@pytest.mark.parametrize("N,P", [(0, 4), (5, 0)])
+def test_no_sampling_point_gives_a_zero_d_value(N, P):
+    """With no query or no point the launcher fills all of d_value with
+    zeros before any kernel (whose grid would be empty), and returns early
+    only when d_value itself is empty: as the plain version's autograd."""
+    bwd = (CSRC / "msda_bwd.cu").read_text()
+    early = bwd.index("static_cast<int64_t>(B) * Len * H * D == 0) return 0;")
+    fill = bwd.index("if (N == 0 || P == 0) {")
+    assert early < fill < bwd.index("launch<float>(value")
+    assert "static_cast<size_t>(B) * Len * H * D * item, s));" in bwd
+    shapes = ((6, 9), (2, 4))
+    value, loc, att, grad = _inputs("random", shapes, 2, 1, max(N, 1), 2, 4)
+    loc, att = loc[:, :N, ..., :P, :], att[:, :N, ..., :P]
+    grad = grad[:, :N]
+    got = ordered_backward(value, shapes, loc, att, grad)
+    _, plain = _plain(value, shapes, loc, att, grad)
+    assert not got[0].any() and not np.isnan(got[0]).any()
+    for g, p in zip(got, plain):
+        assert g.shape == p.shape
+        np.testing.assert_array_equal(g, p)
