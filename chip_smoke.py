@@ -19,10 +19,27 @@ not 0:
    f32 the model is held against the same model with the plain core
    (1e-4); outputs are finite and shaped; latency (CUDA events) and peak
    memory at B=1 and B=4 in f32 and bf16.
+   The same forward's FLOPs (the evaluator's count) give the achieved
+   TFLOP/s of each case.
 5. Serve path (the first main path): registry.save -> registry.load ->
    CentralizedEvaluator over two synthetic batches -> the K-Radar txt tree.
    The launch counts of both kernels are reset right before it and read
-   right after: msda_fwd exactly once per MSDA call, msda_bwd never.
+   right after: msda_fwd exactly once per MSDA call, msda_bwd never (the
+   FLOP count's forward included). Its FLOPS (in the results and in
+   results.json) must equal a reckoning by forward hooks (2 x the
+   multiply-adds of every convolution, linear layer and attention product,
+   the MSDA formula per call), and under "mm" (phase 12) the default's.
+5b. Export path (the sixth main path): the flagship model at B=1 in f32
+   and in bf16 through ``export.export_forward`` (no kernel launched while
+   tracing; the program holds one ``dpft.msda_fwd`` node per view and
+   iteration and, in bf16, an autocast region) and ``save_exported``; a
+   fresh interpreter that imports torch and ``dpft_tpu_torch.ops.
+   deform_attn`` only (``dpft_tpu_torch.models`` must stay unimported)
+   loads both and runs them on the card on the batches of seed 0 and 1:
+   within 1e-5 (f32) and 2e-2 (bf16) of each output's largest element of
+   the eager forward, exactly 12 msda_fwd launches per forward and no
+   other. Export, save and load seconds, ms per forward of the loaded
+   program and of the eager model by CUDA events.
 6. Backward kernel vs plain: ``msda_bwd`` against torch.autograd.grad
    through ``ms_deform_attn_core_plain`` on the same inputs and grad_out,
    at the small border cases (D = 2, 3), at the flagship level shapes of
@@ -33,7 +50,8 @@ not 0:
    and in the collision case: f32 within 1e-4 (sums in another
    order), bf16 against the f32 plain gradient within 5e-2 of its largest
    element. In every case and dtype a second ``msda_bwd`` call and two
-   backward passes through ``MSDAFunction`` must give the same bits of
+   backward passes through the operator ``dpft::msda_fwd`` (whose
+   backward is ``dpft::msda_bwd``) must give the same bits of
    d_value, d_loc and d_att. The time of one camera-view backward of both.
 7. Train step, kernel model vs plain-core model: config/kradar.json at
    B=4 f32, the same weights, batch and dropout seed; the loss within 1e-4
@@ -136,18 +154,22 @@ not 0:
    model. Printed: frames per second, the peak device memory of the run
    (eight workers at once) and the per-frame split: loadmat, copy of the
    float64 cube, cast on the card, kernels, planes back, files; beside it
-   the same frame with the cast on the host.
+   the same frame with the cast on the host. Last, before the tree is
+   removed, ``dpft_tpu_torch.export.main`` (the export CLI, ``--batch 1``)
+   on it: no kernel launched while tracing, and its artifact runs the test
+   frame within 1e-5 of each output's largest element of the eager model.
 
-The kernel report gives, for every kernel, its launches on the five main
+The kernel report gives, for every kernel, its launches on the six main
 paths, its error against the plain version, its time, the plain version's,
 and ``bound_ms``: the least time the card could take, the larger of the
 bytes the function must move (every input read once, every output written
 once; for MSDA only the 32-byte sectors of the value map that this run's
 sampling points touch) over 3.35 TB/s and its float32 operations over
-67 TFLOP/s. For the matmul-form kernels these are the operations of the
-function, bilinear sampling of the points, as for kernel #1; the dense
-products that the form itself computes are printed apart, in the per-level
-lines.
+67 TFLOP/s. For every MSDA kernel, the matmul-form ones too, these are
+the operations of the function, ``ops.deform_attn.msda_operations`` (10
+per corner and channel of every sampling point forward, 30 backward), the
+formula that the evaluator's FLOP count takes too; the dense products that
+the matmul form itself computes are printed apart, in the per-level lines.
 ``library_ms`` is ``grid_sample`` times att for the matmul-form kernels
 (camera 128x228 level) and null elsewhere: no single PyTorch call computes
 multi-level MSDA or either radar plane.
@@ -451,7 +473,7 @@ def phase_kernel_vs_plain(view_shapes):
                 bound = _bound(
                     _msda_value_bytes(args[0], shapes, args[1])
                     + _nbytes(args[1], args[2], got),
-                    10 * 4 * args[2].numel() * D)
+                    da.msda_operations(args[2].shape, D))
                 print(f"[msda] camera f32 one call: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {bound[0]:.5f} ms "
                       f"({bound[1]})")
@@ -497,16 +519,21 @@ def phase_flagship(config, model):
 
 
 def _time_forwards(config, model, label):
-    """Latency (CUDA events) and peak memory of the forward at B=1 and B=4
-    in f32 and bf16. The peak counts whatever else is held on the card."""
+    """Latency (CUDA events), peak memory and achieved FLOP/s (the
+    evaluator's count of one forward over the event time) of the forward at
+    B=1 and B=4 in f32 and bf16. The peak counts whatever else is held on
+    the card."""
+    from dpft_tpu_torch.evaluation.evaluator import forward_flops
     from dpft_tpu_torch.utils.example import example_batch
 
     held = torch.cuda.memory_allocated() / 2 ** 30
     model.eval()
+    batches = {B: _to_cuda(example_batch(config, B=B, cam_hw=(512, 910)))
+               for B in (1, 4)}
+    flops = {B: forward_flops(model, batch) for B, batch in batches.items()}
     for dtype in (torch.float32, torch.bfloat16):
         model.compute_dtype = dtype
-        for B in (1, 4):
-            batch = _to_cuda(example_batch(config, B=B, cam_hw=(512, 910)))
+        for B, batch in batches.items():
             torch.cuda.reset_peak_memory_stats()
             with torch.inference_mode():
                 ms = _cuda_ms(lambda: model(batch), reps=20, warmup=3)
@@ -516,7 +543,8 @@ def _time_forwards(config, model, label):
                 raise AssertionError(f"non-finite outputs at B={B} {dtype}")
             print(f"[{label}] B={B} {str(dtype)[6:]}: {ms:.3f} ms/batch, "
                   f"{ms / B:.3f} ms/frame, peak memory {peak:.3f} GiB "
-                  f"({held:.3f} GiB held before)")
+                  f"({held:.3f} GiB held before); {flops[B]:,} FLOPs per "
+                  f"forward, {flops[B] / ms / 1e9:.2f} TFLOP/s achieved")
     model.compute_dtype = torch.float32
 
 
@@ -583,7 +611,10 @@ def phase_kernel_times(view_shapes):
                     torch.cuda.synchronize()
                 cells = []
                 for event in prof.key_averages():
-                    if "msda" in event.key and event.device_time_total > 0:
+                    # Kernels only: the operators' own events (dpft::msda_*
+                    # and their autograd nodes) sum their kernels' time.
+                    if "msda" in event.key and "_kernel" in event.key and \
+                            event.device_time_total > 0:
                         name = event.key[event.key.find("msda"):].split("(")[0]
                         cells.append(f"{name} "
                                      f"{event.device_time_total / event.count:.1f}")
@@ -643,11 +674,12 @@ def phase_msda_call_times(view_shapes):
                                generator=torch.Generator("cuda").manual_seed(7))
             sampled = _msda_value_bytes(value, shapes, loc)
             out_bytes = B * N_QUERIES * HEADS * HEAD_DIM * 4
-            corners = 4 * att.numel() * HEAD_DIM
             bounds = (_bound(sampled + _nbytes(loc, att) + out_bytes,
-                             10 * corners),
+                             da.msda_operations(att.shape, HEAD_DIM)),
                       _bound(sampled + 2 * _nbytes(loc, att) + out_bytes
-                             + _nbytes(value), 30 * corners))
+                             + _nbytes(value),
+                             da.msda_operations(att.shape, HEAD_DIM,
+                                                backward=True)))
             calls = {}
             for dtype in (torch.float32, torch.bfloat16):
                 args = (value.to(dtype), shapes, loc, att.to(dtype))
@@ -695,11 +727,67 @@ class _Loader:
         return iter(self.batches)
 
 
+def reckon_flops(model, batch):
+    """FLOPs of one forward of ``model`` on ``batch``, reckoned apart from
+    the evaluator's counter: forward hooks give 2 x the multiply-adds of
+    every ``nn.Conv2d``, ``nn.Linear`` and ``Unary1d``, of the in-projections
+    and the two batched products of every ``MultiheadAttention`` (which
+    calls ``F.linear`` and ``torch.matmul`` itself), and per ``MSDeformAttn``
+    call the MSDA formula of its sampling points."""
+    from torch import nn
+
+    from dpft_tpu_torch.models.layers.attention import MultiheadAttention
+    from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
+    from dpft_tpu_torch.models.layers.unary import Unary1d
+    from dpft_tpu_torch.ops.deform_attn import msda_operations
+
+    counts = []
+
+    def conv(m, args, out):
+        taps = m.in_channels // m.groups * math.prod(m.kernel_size)
+        counts.append(2 * out.numel() * taps)
+
+    def linear(m, args, out):
+        counts.append(2 * out.numel() * args[0].shape[-1])
+
+    def attention(m, args, out):
+        q, k, v = args
+        B, N, M, E = q.shape[0], q.shape[1], k.shape[1], m.embed_dim
+        counts.append(2 * B * E * (N * q.shape[-1] + M * k.shape[-1]
+                                   + M * v.shape[-1]) + 4 * B * N * M * E)
+
+    def msda(m, args, out):
+        B, N = args[0].shape[:2]
+        counts.append(msda_operations(
+            (B, N, m.n_heads, m.n_levels, m.n_points), m.d_model // m.n_heads))
+
+    hooks = {nn.Conv2d: conv, nn.Linear: linear, Unary1d: linear,
+             MultiheadAttention: attention, MSDeformAttn: msda}
+    handles = [m.register_forward_hook(hooks[type(m)])
+               for m in model.modules() if type(m) in hooks]
+    try:
+        with torch.inference_mode():
+            model(batch)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return sum(counts)
+
+
+def _gather_config(config):
+    """``config`` with the default MSDA backend, the gather form."""
+    fuser = {k: v for k, v in config["model"]["fuser"].items()
+             if k != "pallas_msda"}
+    return dict(config, model=dict(config["model"], fuser=fuser))
+
+
 def phase_serve(config, model, view_shapes, label="serve"):
-    """The serving path; returns its launches of every kernel."""
+    """The serving path; returns its launches of every kernel and the
+    FLOPs per forward that the evaluator reports."""
     from dpft_tpu_torch.evaluation import CentralizedEvaluator
     from dpft_tpu_torch.models import registry
 
+    loader = _Loader(config)
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "run", "2026-01-01-00-00-00_checkpoint_0001.pt")
         registry.save(model, config, ckpt)
@@ -707,7 +795,7 @@ def phase_serve(config, model, view_shapes, label="serve"):
                                                      repetitions=REPS)
         dst = os.path.join(tmp, "log")
         _reset_launches()
-        results = evaluator(ckpt, _Loader(config), dst)
+        results = evaluator(ckpt, loader, dst)
         launches = _read_launches()
         tree = os.path.join(dst, "2026-01-01-00-00-00", "exports", "kradar")
         files = [os.path.join(d, f) for d, _, fs in os.walk(tree) for f in fs]
@@ -715,15 +803,231 @@ def phase_serve(config, model, view_shapes, label="serve"):
             if not os.path.isfile(os.path.join(tree, "0.0", "all", sub,
                                                "000001.txt")):
                 raise AssertionError(f"exporter wrote no {sub}/000001.txt")
+        with open(os.path.join(dst, "2026-01-01-00-00-00",
+                               "results.json")) as f:
+            written = json.load(f)
     # 2 batches + warm-up + timed forwards; serving runs no backward and
-    # reduces no radar cube.
+    # reduces no radar cube. The FLOP count adds one forward, in the gather
+    # form under either backend.
     expected = _expected_launches(config, view_shapes,
                                   2 + evaluator.warmup + REPS, 0)
+    for name, n in _expected_launches(_gather_config(config), view_shapes,
+                                      1, 0).items():
+        expected[name] += n
     if launches != expected:
         raise AssertionError(f"the {label} path launched {launches}, "
                              f"expected {expected}")
+    reckoned = reckon_flops(model, _to_cuda(loader.batches[0][0]))
+    params = sum(p.numel() for p in model.parameters())
+    if (results["FLOPS"], results["Parameters"]) != (reckoned, params) or \
+            {k: written[k] for k in ("FLOPS", "Parameters")} != \
+            {"FLOPS": reckoned, "Parameters": params}:
+        raise AssertionError(f"the {label} path reports FLOPS "
+                             f"{results['FLOPS']} and Parameters "
+                             f"{results['Parameters']} ({written}); reckoned "
+                             f"by hooks {reckoned} and {params}")
     print(f"[{label}] save -> load -> evaluate -> export: {len(files)} files; "
-          f"results {json.dumps(results)}; launches {launches}")
+          f"results {json.dumps(results)}; FLOPS = {reckoned:,} per B=1 "
+          f"forward, as reckoned by hooks, and in results.json; launches "
+          f"{launches}")
+    return launches, results["FLOPS"]
+
+
+# Run in a fresh interpreter by phase_export: it loads the exported
+# programs with torch and the MSDA operators only, runs each on the saved
+# batches on the card, and reports per program the load time, the launches
+# of every forward, the ms per forward by CUDA events, the outputs, and what
+# one forward puts on the card by torch.profiler. The radar wrappers live in
+# a module this process never imports: no launch.
+_LOAD_AND_RUN = """
+import json, sys, time
+import torch
+import dpft_tpu_torch.ops.deform_attn as da
+
+# Full float32, as the CLIs run (utils/device.py:use_full_float32): the
+# flags belong to the process, not to the program.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+tmp, names, reps = sys.argv[1], sys.argv[2].split(","), int(sys.argv[3])
+wrappers = {"msda_fwd": da.msda_fwd, "msda_bwd": da.msda_bwd,
+            "msda_mm_fwd": da.msda_mm_fwd, "msda_mm_bwd": da.msda_mm_bwd}
+batches = torch.load(tmp + "/batches.pt")
+for w in wrappers.values():
+    w.launches = 0
+report, outputs = {}, {}
+for name in names:
+    t0 = time.perf_counter()
+    forward = torch.export.load(f"{tmp}/{name}.pt2").module()
+    load_s = time.perf_counter() - t0
+    per_forward = []
+    with torch.inference_mode():
+        for seed, batch in batches.items():
+            before = {k: w.launches for k, w in wrappers.items()}
+            outputs[name, seed] = {k: v.float().cpu()
+                                   for k, v in forward(batch).items()}
+            per_forward.append({k: w.launches - before[k]
+                                for k, w in wrappers.items()})
+        batch = batches["seed0"]
+        for _ in range(3):
+            forward(batch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            forward(batch)
+        end.record()
+        torch.cuda.synchronize()
+    report[name] = {"load_s": load_s, "per_forward": per_forward,
+                    "forwards": len(batches) + 3 + reps,
+                    "ms": start.elapsed_time(end) / reps}
+report["launches"] = {k: w.launches for k, w in wrappers.items()}
+# Last, since the profiler slows every later launch: what one forward of
+# each program puts on the card (kernels, copies, memsets).
+from torch.profiler import ProfilerActivity, profile
+for name in names:
+    forward = torch.export.load(f"{tmp}/{name}.pt2").module()
+    with torch.inference_mode():
+        forward(batches["seed0"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            forward(batches["seed0"])
+            torch.cuda.synchronize()
+    report[name]["device_launches"] = sum(
+        e.device_type == torch.autograd.DeviceType.CUDA
+        for e in prof.events())
+report["models_imported"] = sorted(m for m in sys.modules
+                                   if m.startswith("dpft_tpu_torch.models"))
+torch.save(outputs, tmp + "/outputs.pt")
+print(json.dumps(report))
+"""
+
+
+def _msda_nodes(program):
+    """Targets of the MSDA nodes of an exported program, its autocast
+    regions included."""
+    return [str(node.target) for gm in program.graph_module.modules()
+            if isinstance(gm, torch.fx.GraphModule)
+            for node in gm.graph.nodes
+            if "msda" in str(node.target) or "gather" in str(node.target)]
+
+
+def _shared_storages(program):
+    """Names of the program's weights and constants that share a storage
+    with another, grouped (what ``torch.export.save`` writes once)."""
+    groups = {}
+    for key, t in (*program.state_dict.items(), *program.constants.items()):
+        if isinstance(t, torch.Tensor):
+            groups.setdefault(t.untyped_storage().data_ptr(), []).append(key)
+    return [names for names in groups.values() if len(names) > 1]
+
+
+def phase_export(config, model, view_shapes):
+    """The export path (the sixth main path): the flagship model at B=1 in
+    float32 and in bfloat16 through ``export_forward`` and
+    ``save_exported``; a fresh interpreter that imports torch and the MSDA
+    operators only loads both programs and runs them on the card on the
+    batches of seed 0 and seed 1. Outputs within 1e-5 (f32) and 2e-2
+    (bf16) of each output's largest element of the eager forward; exactly
+    one ``msda_fwd`` launch per view and iteration of every forward and no
+    other; returns the launches of every kernel."""
+    from dpft_tpu_torch.export import export_forward, save_exported
+    from dpft_tpu_torch.utils.example import example_batch
+
+    fuser = config["model"]["fuser"]
+    per_forward = dict.fromkeys(("msda_fwd", "msda_bwd", "msda_mm_fwd",
+                                 "msda_mm_bwd"), 0)
+    per_forward["msda_fwd"] = fuser["i_iter"] * len(view_shapes)
+    batches = {f"seed{seed}": _to_cuda(example_batch(
+        config, B=1, cam_hw=(512, 910), seed=seed)) for seed in (0, 1)}
+    tol = {"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]}
+    eager, eager_ms, seconds, shared = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(batches, os.path.join(tmp, "batches.pt"))
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            model.compute_dtype = dtype
+            with torch.inference_mode():
+                for seed, batch in batches.items():
+                    eager[name, seed] = {k: v.float().cpu()
+                                         for k, v in model(batch).items()}
+                eager_ms[name] = _cuda_ms(
+                    lambda: model(batches["seed0"]), reps=20, warmup=3)
+            _reset_launches()
+            t0 = time.perf_counter()
+            program = export_forward(model, batches["seed0"])
+            t1 = time.perf_counter()
+            save_exported(program, os.path.join(tmp, f"{name}.pt2"))
+            seconds[name] = (t1 - t0, time.perf_counter() - t1)
+            shared[name] = _shared_storages(program)
+            if any(_read_launches().values()):
+                raise AssertionError(f"export launched {_read_launches()}: "
+                                     "tracing must reach no kernel")
+            nodes = _msda_nodes(program)
+            if nodes != ["dpft.msda_fwd.default"] * per_forward["msda_fwd"]:
+                raise AssertionError(f"{name} program: MSDA nodes {nodes}")
+            regions = [n.args[1:3] for n in program.graph.nodes
+                       if "autocast" in str(n.target)]
+            if dtype == torch.bfloat16 and (torch.bfloat16, True) not in \
+                    regions:
+                raise AssertionError(f"no bfloat16 autocast region in the "
+                                     f"graph: {regions}")
+        model.compute_dtype = torch.float32
+
+        proc = subprocess.run(
+            [sys.executable, "-c", _LOAD_AND_RUN, tmp, "float32,bfloat16",
+             "20"], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"loading the programs failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        loaded = torch.load(os.path.join(tmp, "outputs.pt"))
+    if report["models_imported"]:
+        raise AssertionError(f"loading imported {report['models_imported']}")
+    forwards = 0
+    for name in ("float32", "bfloat16"):
+        run = report[name]
+        if any(n != per_forward for n in run["per_forward"]):
+            raise AssertionError(f"{name} program launched "
+                                 f"{run['per_forward']} per forward, expected "
+                                 f"{per_forward}")
+        forwards += run["forwards"]
+        errs, same = [], True
+        for seed in batches:
+            for key, want in eager[name, seed].items():
+                got = loaded[name, seed][key]
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item()
+                if got.shape != want.shape or not err <= tol[name] * scale:
+                    raise AssertionError(
+                        f"{name} program {seed} {key}: max abs err {err:.3e} "
+                        f"exceeds {tol[name]} of its largest element {scale}")
+                errs.append(err / max(scale, 1e-30))
+                same = same and torch.equal(got, want)
+        export_s, save_s = seconds[name]
+        print(f"[export] flagship B=1 {name}: export {export_s:.2f} s, save "
+              f"{save_s:.2f} s, load in a fresh process {run['load_s']:.2f} s "
+              f"(torch and the MSDA operators only, no "
+              f"dpft_tpu_torch.models); loaded program {run['ms']:.3f} ms per "
+              f"forward by CUDA events against the eager forward's "
+              f"{eager_ms[name]:.3f} ({run['device_launches']} kernels, "
+              f"copies and memsets on the card per forward); seeds 0 and 1: "
+              f"worst error "
+              f"{max(errs):.3e} of an output's largest element (tol "
+              f"{tol[name]}), bit-equal: {same}; {per_forward['msda_fwd']} "
+              f"dpft.msda_fwd nodes, launches per forward "
+              f"{run['per_forward'][0]}; weights and constants that share a "
+              f"storage: {shared[name] or 'none'}, ok")
+    launches = dict.fromkeys(KERNELS, 0)
+    launches.update(report["launches"])
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["msda_fwd"] = per_forward["msda_fwd"] * forwards
+    if launches != expected:
+        raise AssertionError(f"the export path launched {launches}, "
+                             f"expected {expected}")
+    print(f"[export] launches over {forwards} forwards of the loaded "
+          f"programs: {launches}")
     return launches
 
 
@@ -737,8 +1041,9 @@ def _plain_grads(value, shapes, loc, att, grad_out):
 
 
 def _same_bits_twice(what, args, got):
-    """``msda_bwd`` on ``args`` once more, and the gradients of
-    ``MSDAFunction`` twice by autograd, must give the bits of ``got``."""
+    """``msda_bwd`` on ``args`` once more, and the gradients of the
+    operator ``dpft::msda_fwd`` twice by autograd (its backward is
+    ``dpft::msda_bwd``), must give the bits of ``got``."""
     from dpft_tpu_torch.ops import deform_attn as da
 
     value, shapes, loc, att, grad_out = args
@@ -746,7 +1051,8 @@ def _same_bits_twice(what, args, got):
     for k in ("once", "twice"):
         leaves = [t.detach().requires_grad_(True) for t in (value, loc, att)]
         out = da.ms_deform_attn_core(leaves[0], shapes, *leaves[1:])
-        runs[f"MSDAFunction {k}"] = torch.autograd.grad(out, leaves, grad_out)
+        runs[f"dpft::msda_fwd {k}"] = torch.autograd.grad(out, leaves,
+                                                          grad_out)
     for run, grads in runs.items():
         for name, a, b in zip(("d_value", "d_loc", "d_att"), got, grads):
             if not torch.equal(a, b):
@@ -807,7 +1113,7 @@ def phase_bwd_vs_plain(view_shapes):
                     max_err = max(max_err, err)
             print(f"[msda_bwd] {case} B={B} {str(dtype)[6:]} "
                   f"{' '.join(errs)} (tol {BWD_TOL[dtype]}); the same bits "
-                  "again and twice through MSDAFunction, ok")
+                  "again and twice through dpft::msda_fwd, ok")
         if case == "camera_mono":
             args = (value, shapes, loc, att, grad_out)
             k_ms = _cuda_ms(lambda: da.msda_bwd(*args), reps=20)
@@ -824,7 +1130,7 @@ def phase_bwd_vs_plain(view_shapes):
             roof = _bound(
                 _msda_value_bytes(value, shapes, loc)
                 + _nbytes(loc, att, grad_out) + _nbytes(value, loc, att),
-                30 * 4 * att.numel() * D)
+                da.msda_operations(att.shape, D, backward=True))
             print(f"[msda_bwd] camera B={B} f32 one backward: kernel "
                   f"{k_ms:.4f} ms, plain (autograd) {p_ms:.4f} ms, bound "
                   f"{roof[0]:.5f} ms ({roof[1]})")
@@ -1179,7 +1485,6 @@ def _mm_bounds(BH, h, w, D, S, x, y, itemsize=4):
     small = BH * S * (2 * 4 + itemsize)            # x, y, att
     plane = BH * h * w * D * itemsize
     out = BH * S * D * itemsize
-    corners = 4 * BH * S * D
     win = da.MM_TILE // 2 + 1
     n_tr, n_tc = da.mm_tile_counts(h, w)
     inside = int((da.mm_bin_index(x, y, h, w) < n_tr * n_tc).sum())
@@ -1189,9 +1494,10 @@ def _mm_bounds(BH, h, w, D, S, x, y, itemsize=4):
     touched = int((rows * cols).sum())             # (sample, d_val tile) pairs
     bwd_ops = (inside * D * (4 * win * win + 8 * win)
                + touched * 2 * da.MM_TILE ** 2 * D)
-    return ((_bound(plane + small + out, 10 * corners),
+    return ((_bound(plane + small + out, da.msda_operations((BH, S), D)),
              1e3 * fwd_ops / PEAK_F32_FLOPS),
-            (_bound(2 * plane + 2 * small + out, 30 * corners),
+            (_bound(2 * plane + 2 * small + out,
+                    da.msda_operations((BH, S), D, backward=True)),
              1e3 * bwd_ops / PEAK_F32_FLOPS))
 
 
@@ -2007,12 +2313,14 @@ def _host_s(fn):
 
 
 def phase_prepare(config_path, config, model):
-    """The prepare path; returns its launches of every kernel."""
-    from dpft_tpu_torch import prepare
+    """The prepare path; returns its launches of every kernel. Then the
+    export CLI on the tree that it wrote."""
+    from dpft_tpu_torch import export, prepare
     from dpft_tpu_torch.data import init as init_dataset
     from dpft_tpu_torch.data import load as load_dataset
     from dpft_tpu_torch.data import prepare as build_processor
     from dpft_tpu_torch.evaluation.evaluator import to_device
+    from dpft_tpu_torch.models import registry
     from dpft_tpu_torch.ops import radar_reduce as rr
 
     root = tempfile.mkdtemp(prefix="dpft_prepare_")
@@ -2174,6 +2482,43 @@ def phase_prepare(config_path, config, model):
               f"batch of {B} through the flagship model: finite "
               f"outputs of {N_QUERIES} queries; "
               f"{int(targets['gt_mask'].sum())} boxes in the batch")
+
+        # The export CLI on this tree (its test split gives the example
+        # batch): the artifact loads and runs on the card like the model.
+        ckpt = os.path.join(root, "run", "2026-01-01-00-00-00_checkpoint_0000.pt")
+        registry.save(model, config, ckpt)
+        artifact = os.path.join(root, "model.pt2")
+        _reset_launches()
+        _, cli_s = _host_s(lambda: export.main(dst, config_path, ckpt,
+                                               artifact, batch=1))
+        if any(_read_launches().values()):
+            raise AssertionError(f"export.main launched {_read_launches()}")
+        test_config = dict(config, train=dict(config["train"], batch_size=1))
+        inputs, _ = next(iter(load_dataset(
+            init_dataset(config["dataset"], src=dst, split="test",
+                         config=config),
+            config=test_config, shuffle=False, pad_last=True)))
+        inputs = to_device(inputs, torch.device("cuda"))
+        with torch.inference_mode():
+            got = export.load_exported(artifact).module()(inputs)
+            want = model(inputs)
+        errs = []
+        for key, width in (("class", 2), ("center", 3), ("size", 3),
+                           ("angle", 2)):
+            scale = want[key].abs().max().item()
+            err = (got[key] - want[key]).abs().max().item()
+            if tuple(got[key].shape) != (1, N_QUERIES, width) or \
+                    not err <= TOL[torch.float32] * scale:
+                raise AssertionError(f"export CLI artifact {key}: "
+                                     f"{tuple(got[key].shape)}, max abs err "
+                                     f"{err:.3e} of {scale}")
+            errs.append(err / max(scale, 1e-30))
+        print(f"[prepare] python -m dpft_tpu_torch.export --batch 1 on this "
+              f"tree: {cli_s:.2f} s, no kernel launched while tracing; the "
+              f"artifact ({os.path.getsize(artifact) / 2 ** 20:.1f} MiB) "
+              f"loads and runs the test frame within {max(errs):.3e} of an "
+              f"output's largest element of the eager forward (tol "
+              f"{TOL[torch.float32]}), ok")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -2217,8 +2562,10 @@ def main():
 
     fwd_report = phase_kernel_vs_plain(view_shapes)
     phase_flagship(config, model)
-    paths = {"serve": phase_serve(config, model, view_shapes)}
+    paths = {}
+    paths["serve"], flops = phase_serve(config, model, view_shapes)
     _assert_full_float32("the serve phase")
+    paths["export"] = phase_export(config, model, view_shapes)
     bwd_report = phase_bwd_vs_plain(view_shapes)
     phase_train_step_vs_plain(config, model)
     phase_step_backward_twice(config, model)
@@ -2231,8 +2578,12 @@ def main():
 
     mm_fwd_report, mm_bwd_report = phase_mm_vs_plain(view_shapes)
     phase_core_calls(view_shapes)
-    paths["serve_mm"] = phase_serve(mm_config, mm_model, view_shapes,
-                                    label="serve_mm")
+    paths["serve_mm"], mm_flops = phase_serve(mm_config, mm_model,
+                                              view_shapes, label="serve_mm")
+    if mm_flops != flops:
+        raise AssertionError(f"FLOPS {mm_flops} under \"mm\", {flops} under "
+                             "the default backend")
+    print(f"[serve_mm] FLOPS under \"mm\" = the default's, {flops:,}, ok")
     paths["train_mm"] = phase_train(mm_config, mm_model, view_shapes,
                                     label="train_mm", epochs=1, n_train=2,
                                     n_val=1, resume=False)

@@ -4,9 +4,9 @@ Counterpart of dpft_tpu/evaluation/evaluator.py (CentralizedEvaluator). It
 loads a checkpoint, runs the forward over the test loader, computes the
 configured metrics (``evaluate.metrics``, averaged over batches) and hands
 every batch to the K-Radar exporter, then times the forward with CUDA
-events (10 warm-up runs, then ``repetitions`` timed ones) and counts
-parameters. Results go to ``results.json`` in the log directory instead of
-TensorBoard. Not ported yet: the FLOP count.
+events (10 warm-up runs, then ``repetitions`` timed ones) and counts the
+FLOPs of one forward and the parameters (``evaluate_complexity``). Results
+go to ``results.json`` in the log directory instead of TensorBoard.
 """
 
 from __future__ import annotations
@@ -18,17 +18,66 @@ from typing import Any, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from dpft_tpu_torch.evaluation.exporters import build as build_exporter
 from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
 from dpft_tpu_torch.models.dpft import parameter_count
+from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
 
 
 def to_device(tree: Dict[str, Any], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
             for k, v in tree.items()}
+
+
+def forward_flops(model: torch.nn.Module,
+                  batch: Dict[str, torch.Tensor]) -> int:
+    """FLOPs of one forward of ``model`` on ``batch``, by
+    ``torch.utils.flop_counter.FlopCounterMode``.
+
+    Counted: 2 x the multiply-adds of every convolution and matrix product
+    (bias adds, normalisations, activations and elementwise operations are
+    not counted), and per MSDA call the formula registered on
+    ``dpft::msda_fwd`` (``ops.deform_attn.msda_operations``: 10 operations
+    per corner and channel of every sampling point). This is not XLA's
+    definition, which the JAX package's ``cost_analysis`` reports (it counts
+    elementwise operations too, and its products otherwise): the two
+    packages' numbers differ for the same model.
+
+    The count is of the function, not of the form that computes it: every
+    MSDA layer runs in the gather form while it is counted (the matmul form
+    would add its dense products on the CPU and be invisible to the counter
+    on the card), so both ``fuser.pallas_msda`` settings give one number.
+
+    It works in any grad mode of the caller. The counter's module tracker
+    hooks every module input that requires grad; under ``no_grad`` and
+    ``inference_mode`` a view of a parameter (the decoder's static queries
+    ``query[None].expand(...)``, handed to the fusion layers) still reports
+    ``requires_grad`` but has no autograd node, and the tracker raises.
+    So the parameters stop requiring grad while the forward is counted:
+    nothing then carries a gradient in any mode, and the count is of the
+    forward alone. Both settings are put back afterwards.
+    """
+    params = [p for p in model.parameters() if p.requires_grad]
+    layers = [m for m in model.modules() if isinstance(m, MSDeformAttn)]
+    backends = [m.backend for m in layers]
+    counter = FlopCounterMode(display=False)
+    try:
+        for p in params:
+            p.requires_grad_(False)
+        for m in layers:
+            m.backend = "gather"
+        with counter:
+            model(batch)
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+        for m, backend in zip(layers, backends):
+            m.backend = backend
+    return counter.get_total_flops()
 
 
 class CentralizedEvaluator:
@@ -112,6 +161,15 @@ class CentralizedEvaluator:
         return {"Inference_time_mean_ms": float(np.mean(times)),
                 "Inference_time_std_ms": float(np.std(times))}
 
+    def evaluate_complexity(self, model: torch.nn.Module,
+                            data_loader: Iterable) -> Dict[str, float]:
+        """FLOPs of one forward of the first batch (:func:`forward_flops`)
+        and the number of parameters."""
+        device = next(model.parameters()).device
+        batch, _ = next(iter(data_loader))
+        return {"FLOPS": float(forward_flops(model, to_device(batch, device))),
+                "Parameters": float(parameter_count(model))}
+
     def evaluate(self, checkpoint: str, data_loader: Iterable,
                  dst: Optional[str] = None) -> Dict[str, float]:
         model, _, _, timestamp = registry.load(checkpoint, self.config,
@@ -121,7 +179,7 @@ class CentralizedEvaluator:
         metrics = self.evaluate_one_epoch(model, data_loader, dst)
         results = {**metrics,
                    **self.evaluate_inference_time(model, data_loader),
-                   "Parameters": float(parameter_count(model))}
+                   **self.evaluate_complexity(model, data_loader)}
         if self.logging is not None and dst is not None:
             os.makedirs(dst, exist_ok=True)
             with open(osp.join(dst, "results.json"), "w") as f:

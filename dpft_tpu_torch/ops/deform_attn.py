@@ -11,14 +11,21 @@ map contribute zero.
 
 ``ms_deform_attn_core`` takes the realization as a keyword, ``backend``:
 
- - ``"gather"`` (the default): four corner gathers per point. A CPU tensor
-   takes ``ms_deform_attn_core_plain`` (PyTorch autograd gives its
-   gradient), a CUDA tensor the hand-written kernels through
-   ``MSDAFunction``: forward ``csrc/msda_fwd.cu`` (``msda_fwd``, a group of
-   lanes per query and head, the points spread over the lanes), backward
+ - ``"gather"`` (the default): four corner gathers per point, through the
+   custom operator ``dpft::msda_fwd`` (``torch.ops.dpft.msda_fwd``) on every
+   device. Its CUDA implementation launches ``csrc/msda_fwd.cu``
+   (``msda_fwd``, a group of lanes per query and head, the points spread over
+   the lanes); its CPU implementation is ``ms_deform_attn_core_plain``. Its
+   gradient is the operator ``dpft::msda_bwd``: on the card
    ``csrc/msda_bwd.cu`` (``msda_bwd``: d_value summed in one fixed order per
    batch, head and level, without float atomics, so that two runs give the
-   same bits).
+   same bits), on the CPU autograd through the plain version, recomputed.
+   Both operators have fake implementations (``torch.export`` traces the
+   model through them with no device memory, so an exported program holds
+   ``dpft.msda_fwd`` nodes whatever device it was traced on) and FLOP
+   formulas (``msda_operations``) for ``torch.utils.flop_counter``.
+   Importing this module registers them; that is all a process needs to
+   load and run an exported program.
  - ``"mm"``: the per-level hybrid of the JAX package's ``pallas_mm``
    backend. A level with ``h + w <= _MATMUL_MAX_HW`` is sampled in matmul
    form, as two dense relu-distance products (``sample_level_fused``: no
@@ -41,11 +48,14 @@ There is no fallback from a kernel to the plain version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from dpft_tpu_torch.ops import kernels
 
@@ -90,36 +100,13 @@ def ms_deform_attn_core(value: torch.Tensor, spatial_shapes: Shapes,
     if backend not in BACKENDS:
         raise ValueError(f"Unknown MSDA backend: {backend!r} (one of "
                          f"{BACKENDS})")
-    on_cpu = value.device.type == "cpu"
-    shapes = tuple(map(tuple, spatial_shapes))
-    if backend == "mm":
-        fn = ms_deform_attn_core_mm_plain if on_cpu else MSDAMMFunction.apply
-    else:
-        fn = ms_deform_attn_core_plain if on_cpu else MSDAFunction.apply
-    return fn(value, shapes, sampling_locations, attention_weights)
-
-
-class MSDAFunction(torch.autograd.Function):
-    """The CUDA kernels as one differentiable op: forward ``msda_fwd``,
-    backward ``msda_bwd`` (gradients of value, locations and attention).
-    Every output and gradient is summed in a fixed order, so the op gives
-    the same bits on the same inputs."""
-
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, sampling_locations,
-                attention_weights):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, sampling_locations, attention_weights)
-        return msda_fwd(value, spatial_shapes, sampling_locations,
-                        attention_weights)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, loc, att = ctx.saved_tensors
-        d_value, d_loc, d_att = msda_bwd(
-            value, ctx.spatial_shapes, loc, att,
-            grad_out.to(value.dtype).contiguous())
-        return d_value, None, d_loc, d_att
+    if backend == "gather":
+        return torch.ops.dpft.msda_fwd(value, _flat_shapes(spatial_shapes),
+                                       sampling_locations, attention_weights)
+    fn = (ms_deform_attn_core_mm_plain if value.device.type == "cpu"
+          else MSDAMMFunction.apply)
+    return fn(value, tuple(map(tuple, spatial_shapes)), sampling_locations,
+              attention_weights)
 
 
 def _sample_level_gather(val: torch.Tensor, h: int, w: int, x: torch.Tensor,
@@ -500,7 +487,7 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
     value and attention_weights are float32 or bfloat16 (the same one),
     sampling_locations float32; all contiguous on one CUDA device. The
     output has the value dtype. The result carries no gradient: callers
-    that need one go through ``ms_deform_attn_core`` (``MSDAFunction``).
+    that need one go through ``ms_deform_attn_core`` (``dpft::msda_fwd``).
     """
     B, Len, H, D, N, L, P = _check_inputs(
         "msda_fwd", value, spatial_shapes, sampling_locations,
@@ -563,6 +550,136 @@ def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
     kernels.check(code, "msda_bwd launch")
     msda_bwd.launches += 1
     return d_value, d_loc, d_att
+
+
+def msda_operations(attention_weights_shape: Sequence[int], head_dim: int,
+                    backward: bool = False) -> int:
+    """Operations of one MSDA call, forward or backward: per sampling point
+    (B, N, H, L, P) four corners of ``head_dim`` channels, 10 operations
+    each forward (the corner weight, the product and the sum) and 30
+    backward. A property of the function, whichever form computes it: the
+    FLOP formula of both operators and chip_smoke.py's bounds."""
+    per_corner = 30 if backward else 10
+    return per_corner * 4 * math.prod(attention_weights_shape) * head_dim
+
+
+def _flat_shapes(spatial_shapes: Shapes) -> List[int]:
+    """(h0, w0, h1, w1, ...): the operators' schema takes no nested list."""
+    return [int(s) for hw in spatial_shapes for s in hw]
+
+
+def _pairs(flat: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+    return tuple(zip(flat[0::2], flat[1::2]))
+
+
+@torch.library.custom_op(
+    "dpft::msda_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor value, int[] spatial_shapes, Tensor sampling_locations, "
+           "Tensor attention_weights) -> Tensor")
+def msda_fwd_op(value, spatial_shapes, sampling_locations,
+                attention_weights):
+    """The gather-form MSDA forward as an operator, ``spatial_shapes``
+    flattened: ``msda_fwd`` on the card, the plain version on the CPU."""
+    return msda_fwd(value, _pairs(spatial_shapes), sampling_locations,
+                    attention_weights)
+
+
+@msda_fwd_op.register_kernel("cpu")
+def _msda_fwd_cpu(value, spatial_shapes, sampling_locations,
+                  attention_weights):
+    return ms_deform_attn_core_plain(value, _pairs(spatial_shapes),
+                                     sampling_locations, attention_weights)
+
+
+@msda_fwd_op.register_fake
+def _msda_fwd_fake(value, spatial_shapes, sampling_locations,
+                   attention_weights):
+    B, _, H, D = value.shape
+    return value.new_empty((B, sampling_locations.shape[1], H * D))
+
+
+@torch.library.custom_op(
+    "dpft::msda_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor value, int[] spatial_shapes, Tensor sampling_locations, "
+           "Tensor attention_weights, Tensor grad_out) -> "
+           "(Tensor, Tensor, Tensor)")
+def msda_bwd_op(value, spatial_shapes, sampling_locations,
+                attention_weights, grad_out):
+    """Gradients of ``dpft::msda_fwd`` (d_value, d_loc, d_att) as an
+    operator: ``msda_bwd`` on the card, on the CPU autograd through the
+    plain version, recomputed (the same bits as autograd through
+    ``ms_deform_attn_core_plain``)."""
+    return msda_bwd(value, _pairs(spatial_shapes), sampling_locations,
+                    attention_weights, grad_out)
+
+
+@msda_bwd_op.register_kernel("cpu")
+def _msda_bwd_cpu(value, spatial_shapes, sampling_locations,
+                  attention_weights, grad_out):
+    with _autograd_in_kernel():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_core_plain(leaves[0], _pairs(spatial_shapes),
+                                        *leaves[1:])
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+@contextlib.contextmanager
+def _autograd_in_kernel():
+    """Grad mode and autograd's dispatch keys inside an operator's kernel.
+
+    The dispatcher runs a kernel with the keys of autograd (and autocast)
+    excluded, so operations there record no graph whatever the grad mode.
+    The CPU backward recomputes the plain forward under autograd, the same
+    operations as autograd through ``ms_deform_attn_core_plain`` and so the
+    same bits; this lifts that exclusion for it. (``torch.func.vjp`` would
+    need no private guard, but fails under a dispatch mode such as
+    ``FlopCounterMode``.)
+    """
+    C = torch._C
+    above_autograd = C._dispatch_keyset_full() - C._after_autograd_keyset
+    with C._ForceDispatchKeyGuard(
+            C._dispatch_tls_local_include_set(),
+            C._dispatch_tls_local_exclude_set() - above_autograd), \
+            torch.enable_grad():
+        yield
+
+
+@msda_bwd_op.register_fake
+def _msda_bwd_fake(value, spatial_shapes, sampling_locations,
+                   attention_weights, grad_out):
+    return (torch.empty_like(value), torch.empty_like(sampling_locations),
+            torch.empty_like(attention_weights))
+
+
+def _msda_setup_context(ctx, inputs, output):
+    value, spatial_shapes, sampling_locations, attention_weights = inputs
+    ctx.spatial_shapes = spatial_shapes
+    ctx.save_for_backward(value, sampling_locations, attention_weights)
+
+
+def _msda_backward(ctx, grad_out):
+    value, loc, att = ctx.saved_tensors
+    d_value, d_loc, d_att = torch.ops.dpft.msda_bwd(
+        value, ctx.spatial_shapes, loc, att,
+        grad_out.to(value.dtype).contiguous())
+    return d_value, None, d_loc, d_att
+
+
+msda_fwd_op.register_autograd(_msda_backward,
+                              setup_context=_msda_setup_context)
+
+
+@register_flop_formula(torch.ops.dpft.msda_fwd)
+def _msda_fwd_flops(value_shape, spatial_shapes, loc_shape, att_shape, *_,
+                    **__) -> int:
+    return msda_operations(att_shape, value_shape[-1])
+
+
+@register_flop_formula(torch.ops.dpft.msda_bwd)
+def _msda_bwd_flops(value_shape, spatial_shapes, loc_shape, att_shape, *_,
+                    **__) -> int:
+    return msda_operations(att_shape, value_shape[-1], backward=True)
 
 
 def mm_tile_counts(h: int, w: int) -> Tuple[int, int]:

@@ -2,10 +2,12 @@
 
 ``python -m dpft_tpu_torch.evaluate --device cpu`` evaluates a port
 checkpoint on the synthetic K-Radar fixture (prepared by the JAX package's
-ETL) and writes the K-Radar txt tree. The default device is the card:
-without one the CLI fails instead of running on the CPU.
+ETL) and writes the K-Radar txt tree and ``results.json``, which holds the
+FLOPs of one forward and the parameter count. The default device is the
+card: without one the CLI fails instead of running on the CPU.
 """
 
+import json
 import os
 import os.path as osp
 import subprocess
@@ -54,7 +56,9 @@ def test_evaluate_cli_exports_on_cpu(fixture):
     assert proc.returncode == 0, proc.stderr
     assert "Parameters=" in proc.stdout
     run = osp.join(dst, "2026-01-01-00-00-00")
-    assert osp.isfile(osp.join(run, "results.json"))
+    with open(osp.join(run, "results.json")) as f:
+        results = json.load(f)
+    assert results["FLOPS"] > 0 and results["Parameters"] > 0
     preds = osp.join(run, "exports", "kradar", "0.0", "all", "preds")
     assert sorted(os.listdir(preds))[0] == "000000.txt"
 

@@ -82,7 +82,7 @@ def test_port_never_imports_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "dpft_tpu_torch.ops.deform_attn" in report["modules"]
     assert "dpft_tpu_torch.evaluate" in report["modules"]
-    for name in ("train", "training.trainer", "training.loss",
+    for name in ("export", "evaluation.evaluator", "train", "training.trainer", "training.loss",
                  "training.assigner", "training.optimizer",
                  "training.scheduler", "evaluation.metric", "ops.boxes",
                  "ops.iou", "ops.hungarian", "prepare",
