@@ -39,7 +39,12 @@ not 0:
    within 1e-5 (f32) and 2e-2 (bf16) of each output's largest element of
    the eager forward, exactly 12 msda_fwd launches per forward and no
    other. Export, save and load seconds, ms per forward of the loaded
-   program and of the eager model by CUDA events.
+   program and of the eager model by CUDA events. The same for the model
+   of phase 11 under ``fuser.pallas_msda: "mm"`` in f32 (``export_mm``,
+   after phase 12): one ``dpft.msda_mm_fwd`` node per view and iteration
+   and no ``dpft.msda_fwd`` node; per forward of the loaded program exactly
+   12 ``msda_mm_fwd`` launches, one ``msda_fwd`` per level above the
+   cutoff and iteration (the camera's 512x910: 4) and no backward.
 6. Backward kernel vs plain: ``msda_bwd`` against torch.autograd.grad
    through ``ms_deform_attn_core_plain`` on the same inputs and grad_out,
    at the small border cases (D = 2, 3), at the flagship level shapes of
@@ -104,7 +109,9 @@ not 0:
 12. Serve path under "mm" (the fourth main path): as phase 5 with the mm
    model; ``msda_mm_fwd`` exactly once per view with a level up to the
    cutoff (all its matmul levels in one launch) and ``msda_fwd`` once per
-   level above it, per iteration and forward.
+   level above it, per iteration and forward, the FLOP count's forward
+   included (the matmul form is the operator ``dpft::msda_mm_fwd``, counted
+   in its own form), and the same FLOPS as the default's.
 13. Train path under "mm" (the fifth main path): CentralizedTrainer for 1
    epoch of 2 B=4 steps and a validation batch, exact counts of all four
    MSDA kernels. Then the times of phases 4 and 9 under "mm"; the train
@@ -158,9 +165,31 @@ not 0:
    removed, ``dpft_tpu_torch.export.main`` (the export CLI, ``--batch 1``)
    on it: no kernel launched while tracing, and its artifact runs the test
    frame within 1e-5 of each output's largest element of the eager model.
+   Then, still on that tree (``reference_ckpt``): the flagship model as a
+   reference full-model pickle (``write_reference_pickle``: ``dprt.*``
+   stub classes, no class of the port, and a ``torch.device``, a
+   ``functools.partial``, a numpy array and ``torch.nn.functional.relu``
+   beside the tensors) through ``registry.load`` on the card (the same
+   state bits), ``dpft_tpu_torch.evaluate.main`` (a finite mAP) and
+   ``dpft_tpu_torch.export.main`` (the artifact runs the test frame within
+   1e-5); and two pickles that would create a marker file when unpickled
+   (``os.system``, ``builtins.exec``) raise and create nothing.
+16. Backbone families (after phase 14's timings, before phase 15):
+   config/kradar.json with every view's backbone ConvNeXt-T (and the
+   learnable querent), Swin-T or RegNet-Y-400MF (``family_config``), at
+   production shapes from seed 0: a B=1 f32 forward within 1e-5 of each
+   output's largest element of the same model on the plain core, exactly
+   12 ``msda_fwd`` launches; one B=4 f32 train step against the plain
+   core's (loss 1e-4 relative, gradients 1e-3 of their largest), exactly
+   12 ``msda_fwd`` and 12 ``msda_bwd`` launches; a finite B=1 bf16
+   forward; the FLOP count equal to the reckoning by hooks; forward ms at
+   B=1 and B=4 and train step ms by CUDA events, peak memory, build
+   seconds. Every phase from export_mm on prints its seconds, and the
+   script its total.
 
-The kernel report gives, for every kernel, its launches on the six main
-paths, its error against the plain version, its time, the plain version's,
+The kernel report gives, for every kernel, its launches on every main
+path (serve, export, train, serve_mm, export_mm, train_mm, serve_<family>
+and train_<family> of the three families, prepare), its error against the plain version, its time, the plain version's,
 and ``bound_ms``: the least time the card could take, the larger of the
 bytes the function must move (every input read once, every output written
 once; for MSDA only the 32-byte sectors of the value map that this run's
@@ -732,10 +761,14 @@ def reckon_flops(model, batch):
     the evaluator's counter: forward hooks give 2 x the multiply-adds of
     every ``nn.Conv2d``, ``nn.Linear`` and ``Unary1d``, of the in-projections
     and the two batched products of every ``MultiheadAttention`` (which
-    calls ``F.linear`` and ``torch.matmul`` itself), and per ``MSDeformAttn``
-    call the MSDA formula of its sampling points."""
+    calls ``F.linear`` and ``torch.matmul`` itself), the two batched
+    products of every Swin ``ShiftedWindowAttention`` over its padded
+    windows, and per ``MSDeformAttn`` call the MSDA formula of its sampling
+    points."""
     from torch import nn
 
+    from dpft_tpu_torch.models.backbones.swin import (WINDOW,
+                                                       ShiftedWindowAttention)
     from dpft_tpu_torch.models.layers.attention import MultiheadAttention
     from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
     from dpft_tpu_torch.models.layers.unary import Unary1d
@@ -756,13 +789,19 @@ def reckon_flops(model, batch):
         counts.append(2 * B * E * (N * q.shape[-1] + M * k.shape[-1]
                                    + M * v.shape[-1]) + 4 * B * N * M * E)
 
+    def window_attention(m, args, out):
+        B, H, W, C = args[0].shape
+        windows = B * -(-H // WINDOW) * -(-W // WINDOW)
+        counts.append(4 * windows * WINDOW ** 4 * C)
+
     def msda(m, args, out):
         B, N = args[0].shape[:2]
         counts.append(msda_operations(
             (B, N, m.n_heads, m.n_levels, m.n_points), m.d_model // m.n_heads))
 
     hooks = {nn.Conv2d: conv, nn.Linear: linear, Unary1d: linear,
-             MultiheadAttention: attention, MSDeformAttn: msda}
+             MultiheadAttention: attention, MSDeformAttn: msda,
+             ShiftedWindowAttention: window_attention}
     handles = [m.register_forward_hook(hooks[type(m)])
                for m in model.modules() if type(m) in hooks]
     try:
@@ -774,11 +813,131 @@ def reckon_flops(model, batch):
     return sum(counts)
 
 
-def _gather_config(config):
-    """``config`` with the default MSDA backend, the gather form."""
-    fuser = {k: v for k, v in config["model"]["fuser"].items()
-             if k != "pallas_msda"}
-    return dict(config, model=dict(config["model"], fuser=fuser))
+def family_config(config, backbone, learnable=False, multi_scale=None):
+    """``config`` with every view's backbone ``backbone`` (at
+    ``multi_scale`` stages where given), each neck's ``in_channels_list``
+    set to the skip level's channels and the backbone's stage widths and
+    the embeddings' and the fuser's levels to match; with ``learnable`` the
+    learnable querent, one query per fuser query, within the static
+    querent's minimum and maximum."""
+    from dpft_tpu_torch.models.backbones import stage_channels
+
+    config = json.loads(json.dumps(config))
+    model = config["model"]
+    for view, bcfg in model["backbones"].items():
+        bcfg["name"] = backbone
+        bcfg["multi_scale"] = multi_scale or bcfg["multi_scale"]
+        skip = ([bcfg.get("in_channels", 3)]
+                if model.get("skiplinks", {}).get(view) else [])
+        channels = skip + list(stage_channels(backbone)[:bcfg["multi_scale"]])
+        model["necks"][view]["in_channels_list"] = channels
+        model["embeddings"][view]["n_levels"] = len(channels)
+    model["fuser"]["n_levels"] = [len(model["necks"][v]["in_channels_list"])
+                                  for v in model["inputs"]]
+    if learnable:
+        static = model["querent"]
+        model["querent"] = {"name": "learnable_query",
+                            "n_queries": model["fuser"]["n_queries"],
+                            "minimum": static["minimum"],
+                            "maximum": static["maximum"]}
+    return config
+
+
+def reference_extras():
+    """What a real reference pickle may hold beside tensors: a
+    ``torch.device``, a ``functools.partial``, a numpy array and
+    ``torch.nn.functional.relu`` as attributes."""
+    import functools
+
+    return {"device": torch.device("cuda", 0),
+            "scale": functools.partial(torch.nn.functional.relu,
+                                       inplace=False),
+            "anchors": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "activation": torch.nn.functional.relu}
+
+
+def write_reference_pickle(model, path, extras=None):
+    """Writes ``model`` as the reference saves a checkpoint
+    (``torch.save(model, path)``, a pickle of the module tree) with none of
+    the port's classes in it: each is replaced by a class of its name under
+    a ``dprt.*`` module (``dpft_tpu_torch.models.dpft`` becomes
+    ``dprt.models.dpft``), which exists only while the file is written, so
+    that no loader can import it; torch's own modules stay. A module of
+    the port keeps its parameters, buffers, children and attributes of
+    plain types (no cache of tensors);
+    ``extras`` (a dict) become attributes of the root (see
+    :func:`reference_extras`). Returns the globals the file names."""
+    import copy
+    import types
+
+    from torch import nn
+
+    plain = (bool, int, float, str, tuple, list, set, type(None))
+    internals = set(nn.Module().__dict__)    # parameters, buffers, children
+    made = {}
+
+    def stub_class(cls):
+        name = "dprt" + cls.__module__[len("dpft_tpu_torch"):]
+        if (name, cls.__name__) not in made:
+            made[name, cls.__name__] = type(cls.__name__, (nn.Module,),
+                                            {"__module__": name})
+        return made[name, cls.__name__]
+
+    def clone(m):
+        if type(m).__module__.startswith("dpft_tpu_torch"):
+            new = object.__new__(stub_class(type(m)))
+            new.__dict__.update({k: v for k, v in m.__dict__.items()
+                                 if k in internals or isinstance(v, plain)})
+        else:
+            new = copy.copy(m)
+        new._modules = {k: clone(c) for k, c in m._modules.items()}
+        return new
+
+    root = clone(model)
+    root.__dict__.update(extras or {})
+    # The dprt.* modules and their parents, while pickle looks them up.
+    names = {".".join(name.split(".")[:i + 1]) for name, _ in made
+             for i in range(name.count(".") + 1)}
+    for name in names:
+        sys.modules[name] = types.ModuleType(name)
+    for (name, cls_name), cls in made.items():
+        setattr(sys.modules[name], cls_name, cls)
+    try:
+        torch.save(root, path)
+    finally:
+        for name in names:
+            del sys.modules[name]
+    return torch.serialization.get_unsafe_globals_in_checkpoint(path)
+
+
+class _Reduces:
+    """Pickles as a call of ``fn`` on ``args``: what a malicious checkpoint
+    holds."""
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+
+    def __reduce__(self):
+        return self.fn, self.args
+
+
+def write_malicious_pickles(directory, marker):
+    """Two checkpoints that would create the file ``marker`` when
+    unpickled: one REDUCEs ``os.system``, one ``builtins.exec`` beside a
+    tensor. Returns their paths."""
+    import builtins
+
+    paths = []
+    for name, payload in (
+            ("system", _Reduces(os.system, f"touch {marker}")),
+            ("exec", _Reduces(builtins.exec,
+                              f"open({marker!r}, 'w').close()"))):
+        os.makedirs(os.path.join(directory, name), exist_ok=True)
+        path = os.path.join(directory, name,
+                            "2026-01-01-00-00-00_checkpoint_0001.pt")
+        torch.save({"weight": torch.ones(2), "payload": payload}, path)
+        paths.append(path)
+    return paths
 
 
 def phase_serve(config, model, view_shapes, label="serve"):
@@ -806,14 +965,11 @@ def phase_serve(config, model, view_shapes, label="serve"):
         with open(os.path.join(dst, "2026-01-01-00-00-00",
                                "results.json")) as f:
             written = json.load(f)
-    # 2 batches + warm-up + timed forwards; serving runs no backward and
-    # reduces no radar cube. The FLOP count adds one forward, in the gather
-    # form under either backend.
+    # 2 batches + warm-up + timed forwards + the FLOP count's forward (in
+    # the model's own form since the matmul form is an operator too);
+    # serving runs no backward and reduces no radar cube.
     expected = _expected_launches(config, view_shapes,
-                                  2 + evaluator.warmup + REPS, 0)
-    for name, n in _expected_launches(_gather_config(config), view_shapes,
-                                      1, 0).items():
-        expected[name] += n
+                                  2 + evaluator.warmup + REPS + 1, 0)
     if launches != expected:
         raise AssertionError(f"the {label} path launched {launches}, "
                              f"expected {expected}")
@@ -922,30 +1078,38 @@ def _shared_storages(program):
     return [names for names in groups.values() if len(names) > 1]
 
 
-def phase_export(config, model, view_shapes):
-    """The export path (the sixth main path): the flagship model at B=1 in
-    float32 and in bfloat16 through ``export_forward`` and
-    ``save_exported``; a fresh interpreter that imports torch and the MSDA
-    operators only loads both programs and runs them on the card on the
-    batches of seed 0 and seed 1. Outputs within 1e-5 (f32) and 2e-2
-    (bf16) of each output's largest element of the eager forward; exactly
-    one ``msda_fwd`` launch per view and iteration of every forward and no
-    other; returns the launches of every kernel."""
+def phase_export(config, model, view_shapes, label="export",
+                 dtypes=("float32", "bfloat16")):
+    """The export path (the sixth main path; under ``"mm"`` the seventh,
+    ``export_mm``): the flagship model at B=1 in each of ``dtypes``
+    through ``export_forward`` and ``save_exported``; a fresh interpreter
+    that imports torch and the MSDA operators only loads the programs and
+    runs them on the card on the batches of seed 0 and seed 1. Outputs
+    within 1e-5 (f32) and 2e-2 (bf16) of each output's largest element of
+    the eager forward; one node of the model's MSDA operator
+    (``dpft.msda_fwd``, under ``"mm"`` ``dpft.msda_mm_fwd``) per view and
+    iteration; every forward launches exactly what the eager forward does
+    (``_expected_launches``); returns the launches of every kernel."""
     from dpft_tpu_torch.export import export_forward, save_exported
+    from dpft_tpu_torch.models.fusers.mpfusion import msda_backend_from_config
     from dpft_tpu_torch.utils.example import example_batch
 
     fuser = config["model"]["fuser"]
-    per_forward = dict.fromkeys(("msda_fwd", "msda_bwd", "msda_mm_fwd",
-                                 "msda_mm_bwd"), 0)
-    per_forward["msda_fwd"] = fuser["i_iter"] * len(view_shapes)
+    op = ("msda_mm_fwd" if msda_backend_from_config(fuser) == "mm"
+          else "msda_fwd")
+    calls = fuser["i_iter"] * len(view_shapes)
+    per_forward = {k: v for k, v in _expected_launches(
+        config, view_shapes, 1, 0).items() if k.startswith("msda")}
     batches = {f"seed{seed}": _to_cuda(example_batch(
         config, B=1, cam_hw=(512, 910), seed=seed)) for seed in (0, 1)}
     tol = {"float32": TOL[torch.float32], "bfloat16": TOL[torch.bfloat16]}
     eager, eager_ms, seconds, shared = {}, {}, {}, {}
+    model.eval()    # what export_forward traces; a train step leaves train
+
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(batches, os.path.join(tmp, "batches.pt"))
-        for name, dtype in (("float32", torch.float32),
-                            ("bfloat16", torch.bfloat16)):
+        for name in dtypes:
+            dtype = getattr(torch, name)
             model.compute_dtype = dtype
             with torch.inference_mode():
                 for seed, batch in batches.items():
@@ -964,7 +1128,7 @@ def phase_export(config, model, view_shapes):
                 raise AssertionError(f"export launched {_read_launches()}: "
                                      "tracing must reach no kernel")
             nodes = _msda_nodes(program)
-            if nodes != ["dpft.msda_fwd.default"] * per_forward["msda_fwd"]:
+            if nodes != [f"dpft.{op}.default"] * calls:
                 raise AssertionError(f"{name} program: MSDA nodes {nodes}")
             regions = [n.args[1:3] for n in program.graph.nodes
                        if "autocast" in str(n.target)]
@@ -975,7 +1139,7 @@ def phase_export(config, model, view_shapes):
         model.compute_dtype = torch.float32
 
         proc = subprocess.run(
-            [sys.executable, "-c", _LOAD_AND_RUN, tmp, "float32,bfloat16",
+            [sys.executable, "-c", _LOAD_AND_RUN, tmp, ",".join(dtypes),
              "20"], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
@@ -986,7 +1150,7 @@ def phase_export(config, model, view_shapes):
     if report["models_imported"]:
         raise AssertionError(f"loading imported {report['models_imported']}")
     forwards = 0
-    for name in ("float32", "bfloat16"):
+    for name in dtypes:
         run = report[name]
         if any(n != per_forward for n in run["per_forward"]):
             raise AssertionError(f"{name} program launched "
@@ -1006,7 +1170,7 @@ def phase_export(config, model, view_shapes):
                 errs.append(err / max(scale, 1e-30))
                 same = same and torch.equal(got, want)
         export_s, save_s = seconds[name]
-        print(f"[export] flagship B=1 {name}: export {export_s:.2f} s, save "
+        print(f"[{label}] flagship B=1 {name}: export {export_s:.2f} s, save "
               f"{save_s:.2f} s, load in a fresh process {run['load_s']:.2f} s "
               f"(torch and the MSDA operators only, no "
               f"dpft_tpu_torch.models); loaded program {run['ms']:.3f} ms per "
@@ -1015,18 +1179,17 @@ def phase_export(config, model, view_shapes):
               f"copies and memsets on the card per forward); seeds 0 and 1: "
               f"worst error "
               f"{max(errs):.3e} of an output's largest element (tol "
-              f"{tol[name]}), bit-equal: {same}; {per_forward['msda_fwd']} "
-              f"dpft.msda_fwd nodes, launches per forward "
+              f"{tol[name]}), bit-equal: {same}; {calls} "
+              f"dpft.{op} nodes, launches per forward "
               f"{run['per_forward'][0]}; weights and constants that share a "
               f"storage: {shared[name] or 'none'}, ok")
     launches = dict.fromkeys(KERNELS, 0)
     launches.update(report["launches"])
-    expected = dict.fromkeys(KERNELS, 0)
-    expected["msda_fwd"] = per_forward["msda_fwd"] * forwards
+    expected = _expected_launches(config, view_shapes, forwards, 0)
     if launches != expected:
-        raise AssertionError(f"the export path launched {launches}, "
+        raise AssertionError(f"the {label} path launched {launches}, "
                              f"expected {expected}")
-    print(f"[export] launches over {forwards} forwards of the loaded "
+    print(f"[{label}] launches over {forwards} forwards of the loaded "
           f"programs: {launches}")
     return launches
 
@@ -1855,6 +2018,145 @@ def phase_core_calls(view_shapes):
                   + "; ".join(cells))
 
 
+# The backbone families of the JAX package beside ResNet, at the widths
+# of their first variant; the ConvNeXt model also takes the learnable
+# querent.
+FAMILIES = (("convnext", "ConvNeXt_Tiny", True), ("swin", "Swin_T", False),
+            ("regnet", "RegNet_Y_400MF", False))
+
+
+def phase_families(config):
+    """config/kradar.json with every view's backbone swapped for each
+    family (``family_config``; production shapes, seed 0, no weights file):
+    a B=1 f32 forward against the same model with the plain core (1e-5 of
+    each output's largest element) with exactly one ``msda_fwd`` launch per
+    view and iteration; one B=4 f32 train step against the plain core's
+    (``_compare_steps``, 1e-3) with exactly one ``msda_fwd`` and one
+    ``msda_bwd`` launch per view and iteration; a B=1 bf16 forward, finite;
+    the FLOP count against the reckoning by hooks. Times by CUDA events:
+    forward at B=1 and B=4 f32, train step at B=4 f32; peak memory; build
+    seconds. Returns the launches of the forward (``serve_<family>``) and
+    of the step (``train_<family>``)."""
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch.evaluation.evaluator import forward_flops
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.ops import deform_attn as da
+    from dpft_tpu_torch.training import CentralizedTrainer
+    from dpft_tpu_torch.utils.example import example_batch
+
+    paths = {}
+    for label, backbone, learnable in FAMILIES:
+        t0 = time.perf_counter()
+        fconfig = family_config(config, backbone, learnable=learnable)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = registry.build(fconfig["model"]["name"], fconfig,
+                               device="cuda", seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        batches = {B: _to_cuda(example_batch(fconfig, B=B, cam_hw=(512, 910)))
+                   for B in (1, 4)}
+        with torch.inference_mode():
+            views = model.features(batches[1])
+        view_shapes = dict(zip(model.inputs, (shapes for _, shapes in views)))
+        calls = fconfig["model"]["fuser"]["i_iter"] * len(view_shapes)
+
+        # B=1 f32 forward: kernels against the plain core.
+        with torch.inference_mode():
+            _reset_launches()
+            out = model(batches[1])
+            fwd_launches = _read_launches()
+            msda_layer.ms_deform_attn_core = _plain_core
+            try:
+                ref = model(batches[1])
+            finally:
+                msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+        expected = _expected_launches(fconfig, view_shapes, 1, 0)
+        if fwd_launches != expected or fwd_launches["msda_fwd"] != calls:
+            raise AssertionError(f"{backbone} forward launched "
+                                 f"{fwd_launches}, expected {expected}")
+        errs = []
+        for key, width in (("class", 2), ("center", 3), ("size", 3),
+                           ("angle", 2)):
+            got, want = out[key], ref[key]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if tuple(got.shape) != (1, N_QUERIES, width) or \
+                    not torch.isfinite(got).all() or \
+                    not err <= TOL[torch.float32] * scale:
+                raise AssertionError(f"{backbone} {key}: shape "
+                                     f"{tuple(got.shape)}, max abs err "
+                                     f"{err:.3e} of {scale}")
+            errs.append(err / max(scale, 1e-30))
+
+        # B=1 bf16 forward: finite, its distance from f32 printed.
+        model.compute_dtype = torch.bfloat16
+        with torch.inference_mode():
+            low = model(batches[1])
+        model.compute_dtype = torch.float32
+        if not all(torch.isfinite(v).all() for v in low.values()):
+            raise AssertionError(f"{backbone}: non-finite bf16 outputs")
+        bf16_err = max(((low[k].float() - out[k]).abs().max()
+                        / out[k].abs().max().clamp_min(1e-30)).item()
+                       for k in out)
+
+        # The FLOP count against the reckoning by hooks.
+        flops = forward_flops(model, batches[1])
+        reckoned = reckon_flops(model, batches[1])
+        if flops != reckoned:
+            raise AssertionError(f"{backbone}: FLOPs {flops}, reckoned "
+                                 f"{reckoned}")
+
+        # One B=4 f32 train step against the plain core's.
+        trainer = CentralizedTrainer.from_config(fconfig)
+        batch, targets = _cuda_batch(fconfig, seed=20)
+        _reset_launches()
+        step = _step_loss_and_grads(trainer, model, batch, targets)
+        step_launches = _read_launches()
+        expected = _expected_launches(fconfig, view_shapes, 1, 1)
+        if step_launches != expected or step_launches["msda_bwd"] != calls:
+            raise AssertionError(f"{backbone} step launched "
+                                 f"{step_launches}, expected {expected}")
+        msda_layer.ms_deform_attn_core = _plain_core
+        try:
+            ref_step = _step_loss_and_grads(trainer, model, batch, targets)
+        finally:
+            msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+        _compare_steps(f"{label} kernel model", "plain-core model", step,
+                       ref_step)
+
+        # Times.
+        model.eval()
+        with torch.inference_mode():
+            fwd_ms = {B: _cuda_ms(lambda: model(batch_), reps=10, warmup=3)
+                      for B, batch_ in batches.items()}
+        optimizer = trainer.optimizer_factory(model.parameters())
+
+        def train_step():
+            trainer.train_step(model, batch, targets)
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+
+        step_ms = _cuda_ms(train_step, reps=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        params = sum(p.numel() for p in model.parameters())
+        print(f"[families] {backbone}{' + learnable querent' if learnable else ''}"
+              f" ({params:,} parameters, built in {build_s:.1f} s): B=1 f32 "
+              f"kernel vs plain core worst {max(errs):.3e} of an output's "
+              f"largest element (tol {TOL[torch.float32]}), bf16 vs f32 "
+              f"{bf16_err:.3e}; FLOPs per B=1 forward {flops:,} = reckoned; "
+              f"forward {fwd_ms[1]:.3f} ms at B=1, {fwd_ms[4]:.3f} ms at "
+              f"B=4 f32, train step B={B_TRAIN} f32 {step_ms:.3f} ms (CUDA "
+              f"events); peak memory {peak:.3f} GiB; launches: forward "
+              f"{fwd_launches}, step {step_launches}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        paths[f"serve_{label}"] = fwd_launches
+        paths[f"train_{label}"] = step_launches
+        del model, trainer, optimizer
+        torch.cuda.empty_cache()
+    return paths
+
+
 def phase_mm_model(config, model):
     """config/kradar.json with ``fuser.pallas_msda: "mm"`` and the default
     model's weights, against the default model: the B=1 float32 forward
@@ -2519,9 +2821,105 @@ def phase_prepare(config_path, config, model):
               f"loads and runs the test frame within {max(errs):.3e} of an "
               f"output's largest element of the eager forward (tol "
               f"{TOL[torch.float32]}), ok")
+        phase_reference_ckpt(root, dst, config, model)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+def phase_reference_ckpt(root, dst, config, model):
+    """The reference's own checkpoint format on the card: the flagship
+    model written as a full-model pickle whose classes are ``dprt.*``
+    stubs (``write_reference_pickle``, with a ``torch.device``, a
+    ``functools.partial``, a numpy array and ``torch.nn.functional.relu``
+    beside the tensors; no class of the port in the file) loads through
+    ``registry.load`` with the same state bits, and
+    ``dpft_tpu_torch.evaluate.main`` and ``dpft_tpu_torch.export.main`` run
+    from it on the prepared tree ``dst``: a finite mAP, and an artifact
+    that loads and runs. Two pickles that would create a marker file when
+    unpickled (``os.system``, ``builtins.exec``) raise and create
+    nothing: the safety of ``weights_only`` with stubs, on this torch."""
+    import contextlib
+    import io
+
+    from dpft_tpu_torch import evaluate, export
+    from dpft_tpu_torch.data import init as init_dataset
+    from dpft_tpu_torch.data import load as load_dataset
+    from dpft_tpu_torch.evaluation.evaluator import to_device
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.utils.config import save_config
+
+    t0 = time.perf_counter()
+    run = os.path.join(root, "reference_run")
+    os.makedirs(run)
+    cfg = os.path.join(run, "config.json")
+    save_config(config, cfg)
+    ckpt = os.path.join(run, "2026-08-20-12-00-00_checkpoint_0049.pt")
+    names = write_reference_pickle(model, ckpt, reference_extras())
+    ours = [g for g in names if g.startswith("dpft_tpu_torch")]
+    if ours or "dprt.models.dpft.DPFT" not in names:
+        raise AssertionError(f"the reference pickle names {names}")
+    loaded, _, epoch, _ = registry.load(ckpt, device="cuda")
+    want, got = model.state_dict(), loaded.state_dict()
+    differ = [k for k in want if not k.endswith("num_batches_tracked")
+              and not torch.equal(got[k], want[k])]
+    if set(got) != set(want) or differ or epoch != 49:
+        raise AssertionError(f"the reference pickle loads other tensors: "
+                             f"{differ[:5]}, epoch {epoch}")
+    del loaded
+    load_s = time.perf_counter() - t0
+
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        evaluate.main(dst, cfg, ckpt, os.path.join(root, "reference_eval"))
+    eval_s = time.perf_counter() - t1
+    results = dict(item.split("=")
+                   for item in out.getvalue().strip().splitlines()[-1].split())
+    if not math.isfinite(float(results["mAP"])):
+        raise AssertionError(f"evaluate.main on the reference pickle: "
+                             f"{results}")
+    artifact = os.path.join(root, "reference.pt2")
+    t1 = time.perf_counter()
+    export.main(dst, cfg, ckpt, artifact, batch=1)
+    export_s = time.perf_counter() - t1
+    test_config = dict(config, train=dict(config["train"], batch_size=1))
+    inputs, _ = next(iter(load_dataset(
+        init_dataset(config["dataset"], src=dst, split="test",
+                     config=config),
+        config=test_config, shuffle=False, pad_last=True)))
+    inputs = to_device(inputs, torch.device("cuda"))
+    with torch.inference_mode():
+        got = export.load_exported(artifact).module()(inputs)
+        want = model(inputs)
+    for key in want:
+        scale = want[key].abs().max().item()
+        if not (got[key] - want[key]).abs().max().item() <= \
+                TOL[torch.float32] * scale:
+            raise AssertionError(f"reference artifact {key} differs")
+
+    marker = os.path.join(root, "unpickling_ran_code")
+    refused = []
+    for path in write_malicious_pickles(os.path.join(root, "malicious"),
+                                        marker):
+        try:
+            registry.load(path, config, device="cuda")
+        except ValueError as exc:
+            refused.append(str(exc).split(": ", 1)[-1][:60])
+        else:
+            raise AssertionError(f"{path} loaded")
+        if os.path.exists(marker):
+            raise AssertionError(f"unpickling {path} ran its code")
+    print(f"[reference_ckpt] flagship as a reference full-model pickle "
+          f"({os.path.getsize(ckpt) / 2 ** 20:.1f} MiB, globals "
+          f"{len(names)}: dprt.* stubs, torch.nn, numpy, functools, no "
+          f"dpft_tpu_torch) -> registry.load on cuda: the same state bits "
+          f"({load_s:.2f} s); evaluate.main from it: {out.getvalue().strip()}"
+          f" ({eval_s:.2f} s); export.main from it ({export_s:.2f} s): the "
+          f"artifact runs the test frame within {TOL[torch.float32]} of the "
+          f"eager forward; malicious pickles refused without running "
+          f"(torch {torch.__version__}): {refused}; "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def _assert_full_float32(after):
@@ -2547,7 +2945,16 @@ def _flagship_model(config):
     return model, dict(zip(model.inputs, (shapes for _, shapes in views)))
 
 
+def _timed(phase, fn, *args, **kwargs):
+    """Runs one phase and prints its seconds."""
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    print(f"[seconds] {phase}: {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main():
+    start = time.perf_counter()
     phase_device()
     # The phases below drive the evaluator and the trainer, not the CLIs'
     # ``main``, which call this themselves.
@@ -2584,6 +2991,9 @@ def main():
         raise AssertionError(f"FLOPS {mm_flops} under \"mm\", {flops} under "
                              "the default backend")
     print(f"[serve_mm] FLOPS under \"mm\" = the default's, {flops:,}, ok")
+    paths["export_mm"] = _timed("export_mm", phase_export, mm_config,
+                                mm_model, view_shapes, label="export_mm",
+                                dtypes=("float32",))
     paths["train_mm"] = phase_train(mm_config, mm_model, view_shapes,
                                     label="train_mm", epochs=1, n_train=2,
                                     n_val=1, resume=False)
@@ -2597,7 +3007,9 @@ def main():
     phase_radar_kernel_times()
     del mm_model
     torch.cuda.empty_cache()
-    paths["prepare"] = phase_prepare(config_path, config, model)
+    paths.update(_timed("families", phase_families, config))
+    paths["prepare"] = _timed("prepare and reference_ckpt", phase_prepare,
+                              config_path, config, model)
     # `launches` is the count on the kernel's own main path.
     reports = [(fwd_report, "train"), (bwd_report, "train"),
                (mm_fwd_report, "train_mm"), (mm_bwd_report, "train_mm"),
@@ -2607,6 +3019,7 @@ def main():
         report["launches"] = paths[own_path][name]
         report["launches_by_path"] = {path: launches[name]
                                       for path, launches in paths.items()}
+    print(f"[seconds] chip_smoke.py: {time.perf_counter() - start:.1f} s")
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
     print(smi.splitlines()[0] if smi else smi)

@@ -24,7 +24,6 @@ from dpft_tpu_torch.evaluation.exporters import build as build_exporter
 from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
 from dpft_tpu_torch.models.dpft import parameter_count
-from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
 
 
 def to_device(tree: Dict[str, Any], device: torch.device
@@ -47,10 +46,12 @@ def forward_flops(model: torch.nn.Module,
     elementwise operations too, and its products otherwise): the two
     packages' numbers differ for the same model.
 
-    The count is of the function, not of the form that computes it: every
-    MSDA layer runs in the gather form while it is counted (the matmul form
-    would add its dense products on the CPU and be invisible to the counter
-    on the card), so both ``fuser.pallas_msda`` settings give one number.
+    The count is of the function, not of the form that computes it: the
+    model runs under its own ``fuser.pallas_msda`` backend, and both forms
+    are custom operators (``dpft::msda_fwd``, ``dpft::msda_mm_fwd``) that
+    the counter sees as one call each, never the dense products or gathers
+    inside them, with one formula registered on both. So both settings
+    give one number, and a model's count launches its own kernels.
 
     It works in any grad mode of the caller. The counter's module tracker
     hooks every module input that requires grad; under ``no_grad`` and
@@ -62,21 +63,15 @@ def forward_flops(model: torch.nn.Module,
     forward alone. Both settings are put back afterwards.
     """
     params = [p for p in model.parameters() if p.requires_grad]
-    layers = [m for m in model.modules() if isinstance(m, MSDeformAttn)]
-    backends = [m.backend for m in layers]
     counter = FlopCounterMode(display=False)
     try:
         for p in params:
             p.requires_grad_(False)
-        for m in layers:
-            m.backend = "gather"
         with counter:
             model(batch)
     finally:
         for p in params:
             p.requires_grad_(True)
-        for m, backend in zip(layers, backends):
-            m.backend = backend
     return counter.get_total_flops()
 
 

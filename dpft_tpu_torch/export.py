@@ -15,26 +15,28 @@ and loader, so the artifact takes what ``evaluate`` feeds the model.
 
 Loading and running an artifact needs only ``torch`` and ``import
 dpft_tpu_torch.ops.deform_attn``, which registers the MSDA operators that
-the program calls (``dpft.msda_fwd``); not the model code:
+the program calls (``dpft.msda_fwd``, or ``dpft.msda_mm_fwd`` for a model
+with ``fuser.pallas_msda: "mm"``); not the model code:
 
     import torch, dpft_tpu_torch.ops.deform_attn
     forward = torch.export.load("model.pt2").module()
     out = forward(batch)   # {"class", "center", "size", "angle"}
 
-On the card ``dpft.msda_fwd`` launches ``csrc/msda_fwd.cu``, on the CPU it
-runs the plain version. A float32 program gives the eager forward's
-numbers only with TF32 off in the serving process
+On the card ``dpft.msda_fwd`` launches ``csrc/msda_fwd.cu`` and
+``dpft.msda_mm_fwd`` ``csrc/msda_mm.cu`` (and ``msda_fwd`` on its levels
+above the cutoff); on the CPU both run their plain versions. A float32
+program gives the eager forward's numbers only with TF32 off in the
+serving process
 (``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False``, as the CLIs set them):
-the flags belong to the process, not to the program. Only the gather form
-exports: a model with ``fuser.pallas_msda: "mm"`` raises
-``NotImplementedError``.
+the flags belong to the process, not to the program.
 
 The caches of tensors that depend only on the levels' static shapes and
 the device (the sinusoidal tables, the MSDA normalizers, the querent's
-grid) stay plain attributes and enter the program as constants; export
-warns that they were "assigned during export" when it is a model's first
-call, which is what a frozen program needs, so that warning is silenced.
+grid, Swin's shift masks) stay plain attributes and enter the program as
+constants; export warns that they were "assigned during export" when it
+is a model's first call, which is what a frozen program needs, so that
+warning is silenced.
 Buffers would change nothing in the program and would have to be
 registered during a forward, since the shapes are known only then.
 """
@@ -55,14 +57,6 @@ def export_forward(model: torch.nn.Module, example_batch: Dict[str, torch.Tensor
     """Exports ``model(batch)`` in eval mode, its weights carried in the
     program, at the shapes of ``example_batch`` (tensors on the model's
     device)."""
-    from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
-
-    if any(isinstance(m, MSDeformAttn) and m.backend != "gather"
-           for m in model.modules()):
-        raise NotImplementedError(
-            "export takes the gather-form MSDA only: the matmul form "
-            "(fuser.pallas_msda: \"mm\") is no custom operator yet (ROADMAP "
-            "Queue 1: msda_mm as a custom op, then export under \"mm\")")
     model.eval()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*assigned during export")

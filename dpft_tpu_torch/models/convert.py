@@ -5,6 +5,14 @@ the JAX model (nested dicts of numpy arrays) into a state_dict of the port
 in the reference's key space. It is the inverse of
 dpft_tpu/models/torch_checkpoint.py:convert_full_model:
 
+ - Backbones of every family the JAX package builds (ResNet, ConvNeXt,
+   Swin, RegNet) land in the reference wrapper's keys: ``body.*`` is
+   torchvision's module tree (``features.*`` of ConvNeXt and Swin,
+   ``trunk_output.*`` of RegNet, whose ``stem.*`` sits beside ``body``);
+   ConvNeXt's ``gamma`` becomes ``layer_scale`` (C, 1, 1), Swin gets its
+   ``relative_position_index`` buffer. The learnable querent's ``query``
+   becomes ``querent.queries``.
+
  - Dense kernels (in, out) become Linear weights (out, in); conv kernels
    HWIO become OIHW; Unary1d weights gain their trailing 1.
  - The packed attention projection ``in_proj_kernel`` (E, 3E) becomes
@@ -25,6 +33,10 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from dpft_tpu_torch.models.backbones import family
+from dpft_tpu_torch.models.backbones.swin import (WINDOW,
+                                                   relative_position_index)
 
 State = Dict[str, torch.Tensor]
 
@@ -60,19 +72,15 @@ def _put_bn(out: State, prefix: str, p: Dict[str, Any],
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
 
 
-def _backbone(out: State, prefix: str, p: Dict[str, Any],
-              s: Dict[str, Any]) -> None:
-    if "adjustment" in p:
-        out[f"{prefix}.adjustment_layer.weight"] = _conv(
-            p["adjustment"]["kernel"])
-    body = f"{prefix}.body"
+def _resnet(out: State, body: str, p: Dict[str, Any],
+            s: Dict[str, Any]) -> None:
     out[f"{body}.conv1.weight"] = _conv(p["conv1"]["kernel"])
     _put_bn(out, f"{body}.bn1", p["bn1"], s["bn1"])
     for name, blk in p.items():
         m = re.match(r"^layer(\d)_block(\d+)$", name)
         if not m:
-            if name not in ("adjustment", "conv1", "bn1"):
-                raise ValueError(f"{prefix}: unmapped backbone entry {name}")
+            if name not in ("conv1", "bn1"):
+                raise ValueError(f"{body}: unmapped backbone entry {name}")
             continue
         bp = f"{body}.layer{m.group(1)}.{m.group(2)}"
         bs = s[name]
@@ -87,6 +95,111 @@ def _backbone(out: State, prefix: str, p: Dict[str, Any],
                 _put_bn(out, f"{bp}.downsample.1", leaf, bs[sub])
             else:
                 raise ValueError(f"{bp}: unmapped block entry {sub}")
+
+
+def _put_conv(out: State, prefix: str, p: Dict[str, Any]) -> None:
+    out[f"{prefix}.weight"] = _conv(p["kernel"])
+    if "bias" in p:
+        out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _convnext(out: State, body: str, p: Dict[str, Any],
+              s: Dict[str, Any]) -> None:
+    """torchvision ``features``: 0 stem, 2k-1 stage k, 2k downsample k."""
+    for name, leaf in p.items():
+        if name in ("stem_conv", "stem_norm"):
+            put = _put_conv if name == "stem_conv" else _put_norm
+            put(out, f"{body}.0.{0 if name == 'stem_conv' else 1}", leaf)
+        elif m := re.match(r"^down(\d)_(norm|conv)$", name):
+            idx = f"{body}.{2 * int(m.group(1))}"
+            if m.group(2) == "norm":
+                _put_norm(out, f"{idx}.0", leaf)
+            else:
+                _put_conv(out, f"{idx}.1", leaf)
+        elif m := re.match(r"^stage(\d)_block(\d+)$", name):
+            bp = f"{body}.{2 * int(m.group(1)) - 1}.{m.group(2)}"
+            _put_conv(out, f"{bp}.block.0", leaf["dwconv"])
+            _put_norm(out, f"{bp}.block.2", leaf["norm"])
+            _put_dense(out, f"{bp}.block.3", leaf["pw1"])
+            _put_dense(out, f"{bp}.block.5", leaf["pw2"])
+            out[f"{bp}.layer_scale"] = _t(leaf["gamma"]).reshape(-1, 1, 1)
+        else:
+            raise ValueError(f"{body}: unmapped ConvNeXt entry {name}")
+
+
+def _swin(out: State, body: str, p: Dict[str, Any],
+          s: Dict[str, Any]) -> None:
+    """torchvision ``features``: 0 patch embedding, 2k-1 stage k, 2k patch
+    merging k; the relative position index, a buffer of torchvision's key
+    space, made here."""
+    for name, leaf in p.items():
+        if name == "patch_embed":
+            _put_conv(out, f"{body}.0.0", leaf)
+        elif name == "patch_norm":
+            _put_norm(out, f"{body}.0.2", leaf)
+        elif m := re.match(r"^merge(\d)$", name):
+            mp = f"{body}.{2 * int(m.group(1))}"
+            _put_norm(out, f"{mp}.norm", leaf["norm"])
+            _put_dense(out, f"{mp}.reduction", leaf["reduction"])
+        elif m := re.match(r"^stage(\d)_block(\d+)$", name):
+            bp = f"{body}.{2 * int(m.group(1)) - 1}.{m.group(2)}"
+            _put_norm(out, f"{bp}.norm1", leaf["norm1"])
+            _put_norm(out, f"{bp}.norm2", leaf["norm2"])
+            _put_dense(out, f"{bp}.attn.qkv", leaf["attn"]["qkv"])
+            _put_dense(out, f"{bp}.attn.proj", leaf["attn"]["proj"])
+            out[f"{bp}.attn.relative_position_bias_table"] = _t(
+                leaf["attn"]["relative_position_bias_table"])
+            out[f"{bp}.attn.relative_position_index"] = \
+                relative_position_index(WINDOW)
+            _put_dense(out, f"{bp}.mlp.0", leaf["mlp1"])
+            _put_dense(out, f"{bp}.mlp.3", leaf["mlp2"])
+        else:
+            raise ValueError(f"{body}: unmapped Swin entry {name}")
+
+
+_REGNET_PARTS = {"conv1": "f.a.0", "bn1": "f.a.1", "conv2": "f.b.0",
+                 "bn2": "f.b.1", "conv3": "f.c.0", "bn3": "f.c.1",
+                 "down_conv": "proj.0", "down_bn": "proj.1"}
+
+
+def _regnet(out: State, body: str, p: Dict[str, Any],
+            s: Dict[str, Any]) -> None:
+    """The wrapper's ``stem`` beside ``body`` = torchvision
+    ``trunk_output`` (``block{S}.block{S}-{B}``)."""
+    stem = body[:-len("body")] + "stem"
+    for name, leaf in p.items():
+        if name == "stem":
+            _put_conv(out, f"{stem}.0", leaf)
+        elif name == "stem_bn":
+            _put_bn(out, f"{stem}.1", leaf, s[name])
+        elif m := re.match(r"^block(\d)_(\d+)$", name):
+            bp = f"{body}.block{m.group(1)}.block{m.group(1)}-{m.group(2)}"
+            for sub, sleaf in leaf.items():
+                if sub == "se":
+                    for fc in ("fc1", "fc2"):
+                        _put_conv(out, f"{bp}.f.se.{fc}", sleaf[fc])
+                elif sub not in _REGNET_PARTS:
+                    raise ValueError(f"{bp}: unmapped RegNet entry {sub}")
+                elif "bn" in sub:
+                    _put_bn(out, f"{bp}.{_REGNET_PARTS[sub]}", sleaf,
+                            s[name][sub])
+                else:
+                    _put_conv(out, f"{bp}.{_REGNET_PARTS[sub]}", sleaf)
+        else:
+            raise ValueError(f"{body}: unmapped RegNet entry {name}")
+
+
+_BACKBONES = {"resnet": _resnet, "convnext": _convnext, "swin": _swin,
+              "regnet": _regnet}
+
+
+def _backbone(out: State, prefix: str, family: str, p: Dict[str, Any],
+              s: Dict[str, Any]) -> None:
+    if "adjustment" in p:
+        out[f"{prefix}.adjustment_layer.weight"] = _conv(
+            p["adjustment"]["kernel"])
+    _BACKBONES[family](out, f"{prefix}.body",
+                       {k: v for k, v in p.items() if k != "adjustment"}, s)
 
 
 def _fpn(out: State, prefix: str, p: Dict[str, Any]) -> None:
@@ -181,11 +294,14 @@ def state_dict_from_flax(variables: Dict[str, Any],
     stats = variables.get("batch_stats", {})
     model = config["model"]
     out: State = {}
-    for name in model.get("backbones", {}):
-        _backbone(out, f"backbones.{name}", params[f"backbones_{name}"],
-                  stats[f"backbones_{name}"])
+    for name, bcfg in model.get("backbones", {}).items():
+        _backbone(out, f"backbones.{name}", family(bcfg["name"]),
+                  params[f"backbones_{name}"],
+                  stats.get(f"backbones_{name}", {}))
     for name in model.get("necks", {}):
         _fpn(out, f"necks.{name}", params[f"necks_{name}"])
+    if "querent" in params:                 # the learnable querent
+        out["querent.queries"] = _t(params["querent"]["query"])
     if "fuser" in params:
         _fuser(out, params["fuser"], model)
     return out

@@ -91,3 +91,15 @@ def init_parameters(model: nn.Module, gen: torch.Generator) -> nn.Module:
         if hasattr(m, "reset_parameters_seeded"):
             m.reset_parameters_seeded(gen)
     return model
+
+
+class Permute(nn.Module):
+    """``x.permute(dims)`` as a module (torchvision's ``ops.misc.Permute``),
+    so that Sequentials keep torchvision's indices."""
+
+    def __init__(self, *dims: int):
+        super().__init__()
+        self.dims = dims
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.permute(self.dims)

@@ -5,10 +5,15 @@ value (e.g. ``IMAGENET1K_V2``) resolves to a local torchvision state_dict,
 ``<weights_dir>/<backbone>_<weights>.{pth,pt}``, where ``weights_dir`` is
 ``computing.weights_dir``, else ``$DPFT_WEIGHTS_DIR``, else ``weights/``;
 an existing file path is taken as it is. Nothing is downloaded: a miss
-warns and keeps the seeded init. The backbone's ``body`` carries
-torchvision's key names, so the file loads into it as it is (keys without
-a module, the classifier's and those of stages past ``multi_scale``, are
-skipped; the 1x1 adjustment conv of non-RGB inputs keeps its init).
+warns and keeps the seeded init. A backbone keeps the reference wrapper's
+key space, in which torchvision's keys are known (``torchvision_keys``):
+ResNet's ``body`` is torchvision's whole model, ConvNeXt's and Swin's its
+``features``, RegNet's its ``trunk_output`` with ``stem`` beside it. Keys
+without a module here (the classifier's: ResNet's and RegNet's ``fc``,
+ConvNeXt's ``classifier``, Swin's ``norm`` and ``head``; those of stages
+past ``multi_scale``) are skipped; a key of the backbone that the file
+lacks raises, but for the 1x1 adjustment conv of non-RGB inputs, which
+keeps its init.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+
+from dpft_tpu_torch.models.backbones import family
 
 logger = logging.getLogger(__name__)
 
@@ -45,15 +52,33 @@ def resolve_weights(backbone_name: str, weights: Optional[str],
     return None
 
 
+def torchvision_keys(kind: str, state: Dict[str, Any]) -> Dict[str, Any]:
+    """A torchvision state_dict of a backbone family ``kind`` ('resnet',
+    'convnext', 'swin', 'regnet') in the wrapper's key space; keys outside
+    the wrapped modules are left out."""
+    prefixes = {"resnet": {"": "body."}, "convnext": {"features.": "body."},
+                "swin": {"features.": "body."},
+                "regnet": {"trunk_output.": "body.", "stem.": "stem."}}[kind]
+    out = {}
+    for key, value in state.items():
+        for old, new in prefixes.items():
+            if key.startswith(old):
+                out[new + key[len(old):]] = value
+                break
+    return out
+
+
 def apply_pretrained(backbones: nn.ModuleDict, config: Dict[str, Any]) -> None:
-    """Loads every resolvable pretrained state_dict into its backbone body."""
+    """Loads every resolvable pretrained state_dict into its backbone."""
     for name, bcfg in config["model"].get("backbones", {}).items():
         path = resolve_weights(bcfg["name"], bcfg.get("weights"), config)
         if path is None:
             continue
         state = torch.load(path, map_location="cpu", weights_only=True)
         # The classifier and any stage past multi_scale have no module here.
-        missing, _ = backbones[name].body.load_state_dict(state, strict=False)
+        missing, _ = backbones[name].load_state_dict(
+            torchvision_keys(family(bcfg["name"]), state), strict=False)
+        missing = [k for k in missing if not k.startswith("adjustment_layer.")]
         if missing:
             raise ValueError(f"{path} lacks backbone keys {missing}")
         logger.info("Loaded pretrained %s weights for %s from %s",

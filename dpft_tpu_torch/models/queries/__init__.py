@@ -3,6 +3,9 @@ from typing import Any, Dict
 from dpft_tpu_torch.models.queries.data_agnostic import (  # noqa: F401
     DataAgnosticStaticQueries, build_data_agnostic_query,
 )
+from dpft_tpu_torch.models.queries.learnable import (  # noqa: F401
+    LearnableQueries, build_learnable_query,
+)
 
 
 def build_querent(name: str, config: Dict[str, Any]):
@@ -11,6 +14,5 @@ def build_querent(name: str, config: Dict[str, Any]):
     if "agnostic" in lname:
         return build_data_agnostic_query(name, config)
     if "learnable" in lname:
-        raise NotImplementedError(
-            "The learnable querent is not ported yet (ROADMAP.md, Queue 1)")
+        return build_learnable_query(name, config)
     raise ValueError(f"Unknown querent: {name}")

@@ -1,14 +1,16 @@
 """Model construction, device resolution and checkpoint IO.
 
-Counterpart of dpft_tpu/models/registry.py. A checkpoint is a ``.pt``
-state_dict in the reference's key space, named
+Counterpart of dpft_tpu/models/registry.py. A checkpoint the port writes
+is a ``.pt`` state_dict in the reference's key space, named
 ``{timestamp}_checkpoint_{epoch:04d}.pt``, with the config it was built
 from saved beside it as ``config.json``. The JAX package can import the
-same file (dpft_tpu/models/torch_checkpoint.py), and the port can load a
-reference state_dict: the unused ``head.*`` template the reference also
-saves is dropped, and a size-head output bias that a bias-free reference
-head lacks is set to zero, so the loaded model computes the reference
-function.
+same file (dpft_tpu/models/torch_checkpoint.py). ``load`` also takes the
+reference's own checkpoints under that name: a full-model pickle, a
+state_dict (or one under ``"state_dict"``) or an ``.npz``
+(``torch_checkpoint.read_state_dict``, ``weights_only`` throughout): the
+unused ``head.*`` template the reference also saves is dropped, and a
+size-head output bias that a bias-free reference head lacks is set to
+zero, so the loaded model computes the reference function.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from dpft_tpu_torch.models import dpft as dpft_module
+from dpft_tpu_torch.models import torch_checkpoint
 from dpft_tpu_torch.models.layers.common import init_parameters
 from dpft_tpu_torch.models.pretrained import apply_pretrained
 from dpft_tpu_torch.utils.config import load_config, save_config
@@ -90,18 +93,24 @@ def load(path: str, config: Optional[Dict[str, Any]] = None,
          ) -> Tuple[dpft_module.DPFT, Dict[str, Any], int, str]:
     """Loads (model in eval mode, config, epoch, timestamp).
 
-    ``config`` is used only when no ``config.json`` lies beside the file
-    or one level up.
+    ``path``: a state_dict ``.pt``, a reference full-model pickle or an
+    ``.npz`` (see the module docstring). ``config`` is used only when no
+    ``config.json`` lies beside the file or one level up. A key that the
+    model lacks, or one of the model's that the file lacks, raises
+    ``ValueError``, but for the size-head bias and BatchNorm's
+    ``num_batches_tracked`` (which a pickle's reading drops; it stays 0).
     """
     epoch, timestamp = parse_checkpoint_name(path)
     config = checkpoint_config(path, fallback=config)
     device = resolve_device(device or config.get("computing", {}).get("device"))
     model = _construct(config["model"]["name"], config)
-    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = torch_checkpoint.read_state_dict(path)
     state = {k: v for k, v in state.items() if not k.startswith("head.")}
     missing, unexpected = model.load_state_dict(state, strict=False)
-    # A bias-free reference size head: zero bias computes its function.
     for key in missing:
+        if key.endswith(".num_batches_tracked"):
+            continue
+        # A bias-free reference size head: zero bias computes its function.
         if not (key.startswith("fuser.heads.") and ".size_head." in key
                 and key.endswith("bias")):
             raise ValueError(f"{path}: missing key {key}")

@@ -30,11 +30,16 @@ map contribute zero.
    backend. A level with ``h + w <= _MATMUL_MAX_HW`` is sampled in matmul
    form, as two dense relu-distance products (``sample_level_fused``: no
    gather forward, no scatter and no atomic backward); a larger level in
-   gather form. A CPU tensor takes ``ms_deform_attn_core_mm_plain``, a CUDA
-   tensor ``MSDAMMFunction``: ``csrc/msda_mm.cu`` on the matmul levels, all
-   of them in one launch per direction (``msda_mm_fwd_group``,
+   gather form. It goes through the custom operator ``dpft::msda_mm_fwd``
+   on every device: on the card ``csrc/msda_mm.cu`` on the matmul levels,
+   all of them in one launch per direction (``msda_mm_fwd_group``,
    ``msda_mm_bwd_group``, counted as ``msda_mm_fwd`` / ``msda_mm_bwd``),
-   ``msda_fwd`` / ``msda_bwd`` on the others.
+   ``msda_fwd`` / ``msda_bwd`` on the others; on the CPU
+   ``ms_deform_attn_core_mm_plain``. Its gradient is ``dpft::msda_mm_bwd``,
+   which takes the forward's pixel coordinates and bins (outputs of the
+   forward operator, sized from the shapes alone). Both have fake
+   implementations and the gather form's FLOP formulas, so a model
+   exports and is counted in either form.
 
 The kernels of ``csrc/msda_mm.cu`` cut a level into tiles of ``MM_TILE`` x
 ``MM_TILE`` pixels and sort the samples into one bin per tile;
@@ -103,10 +108,9 @@ def ms_deform_attn_core(value: torch.Tensor, spatial_shapes: Shapes,
     if backend == "gather":
         return torch.ops.dpft.msda_fwd(value, _flat_shapes(spatial_shapes),
                                        sampling_locations, attention_weights)
-    fn = (ms_deform_attn_core_mm_plain if value.device.type == "cpu"
-          else MSDAMMFunction.apply)
-    return fn(value, tuple(map(tuple, spatial_shapes)), sampling_locations,
-              attention_weights)
+    return torch.ops.dpft.msda_mm_fwd(value, _flat_shapes(spatial_shapes),
+                                      sampling_locations,
+                                      attention_weights)[0]
 
 
 def _sample_level_gather(val: torch.Tensor, h: int, w: int, x: torch.Tensor,
@@ -332,83 +336,100 @@ def _split_levels(spatial_shapes: Tuple[Tuple[int, int], ...]):
     return mm, tuple(l for l in levels if l not in mm)
 
 
-class MSDAMMFunction(torch.autograd.Function):
-    """Backend ``"mm"`` on the card as one differentiable op.
+def _msda_mm_fwd_card(value, spatial_shapes, loc, att):
+    """Backend ``"mm"`` on the card, forward: the implementation of
+    ``dpft::msda_mm_fwd`` for CUDA tensors.
 
-    All matmul levels go through one ``msda_mm_fwd_group`` launch (one
-    ``msda_mm_bwd_group`` launch backward), which also brings the pixel
-    coordinates and attention weights of all levels to batch-head-major
-    order ((L, 2, B*H, N*P) and (L, B*H, N*P)): every level's values are
-    read in place from ``value`` and its gradient is written in place into
-    ``d_value``. A level above the cutoff goes through ``msda_fwd`` /
-    ``msda_bwd`` on contiguous copies of its slices. The per-level outputs
-    are summed over levels and points in one reduction.
+    All matmul levels go through one ``msda_mm_fwd_group`` launch, which
+    also brings the pixel coordinates and attention weights of all levels
+    to batch-head-major order (xy (L, 2, B*H, N*P) float32 and att_t
+    (L, B*H, N*P)) and sorts the samples into bins: every level's values
+    are read in place from ``value``. A level above the cutoff goes through
+    ``msda_fwd`` on contiguous copies of its slices. The per-level outputs
+    are summed over levels and points in one reduction. Returns (out, xy,
+    att_t, bins): what :func:`_msda_mm_bwd_card` takes besides the inputs.
     """
+    B, _, H, D = value.shape
+    N, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    _check_levels(value, spatial_shapes, loc)
+    value = value.contiguous()
+    loc, att = loc.float().contiguous(), att.contiguous()
+    # The launch itself fills xy and att_t (see mm_coords_plain).
+    xy = torch.empty((L, 2, B * H, N * P), dtype=torch.float32,
+                     device=value.device)
+    att_t = torch.empty((L, B * H, N * P), dtype=value.dtype,
+                        device=value.device)
+    mm, gather = _split_levels(spatial_shapes)
+    bins, out = [], None
+    for lvl, start, h, w in gather:
+        v, l, a = _one_level(lvl, start, h, w, value, loc, att)
+        part = msda_fwd(v, ((h, w),), l, a)
+        out = part if out is None else out + part
+    if mm:
+        levels = torch.empty((len(mm), B * H, N * P, D), dtype=value.dtype,
+                             device=value.device)
+        bins = msda_mm_fwd_group(value, mm, loc, att,
+                                 _level_sizes(spatial_shapes, value.device),
+                                 xy, att_t, levels)
+        # Summed over levels and points, in (B, N, H, D) order. Under
+        # autocast ``sum`` gives float32: back to the value dtype.
+        part = levels.view(len(mm), B, H, N, P, D).permute(
+            1, 3, 2, 5, 0, 4).sum(dim=(4, 5))
+        part = part.reshape(B, N, H * D).to(value.dtype)
+        out = part if out is None else out + part
+    return out.contiguous(), xy, att_t, bins
 
-    @staticmethod
-    def forward(ctx, value, spatial_shapes, loc, att):
-        B, _, H, D = value.shape
-        N, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
-        _check_levels(value, spatial_shapes, loc)
-        value = value.contiguous()
-        loc, att = loc.float().contiguous(), att.contiguous()
-        # The launch itself fills xy and att_t (see mm_coords_plain).
-        xy = torch.empty((L, 2, B * H, N * P), dtype=torch.float32,
-                         device=value.device)
-        att_t = torch.empty((L, B * H, N * P), dtype=value.dtype,
-                            device=value.device)
-        ctx.save_for_backward(value, loc, att, xy, att_t)
-        ctx.spatial_shapes = spatial_shapes
 
-        mm, gather = _split_levels(spatial_shapes)
-        ctx.bins = None
-        out = None
-        for lvl, start, h, w in gather:
-            v, l, a = _one_level(lvl, start, h, w, value, loc, att)
-            part = msda_fwd(v, ((h, w),), l, a)
-            out = part if out is None else out + part
-        if mm:
-            levels = torch.empty((len(mm), B * H, N * P, D),
-                                 dtype=value.dtype, device=value.device)
-            ctx.bins = msda_mm_fwd_group(
-                value, mm, loc, att,
-                _level_sizes(spatial_shapes, value.device), xy, att_t, levels)
-            # Summed over levels and points, in (B, N, H, D) order. Under
-            # autocast ``sum`` gives float32: back to the value dtype.
-            part = levels.view(len(mm), B, H, N, P, D).permute(
-                1, 3, 2, 5, 0, 4).sum(dim=(4, 5))
-            part = part.reshape(B, N, H * D).to(value.dtype)
-            out = part if out is None else out + part
-        return out
+def _msda_mm_bwd_card(value, spatial_shapes, loc, att, xy, att_t, bins,
+                      grad_out):
+    """Backend ``"mm"`` on the card, backward: the implementation of
+    ``dpft::msda_mm_bwd`` for CUDA tensors. One ``msda_mm_bwd_group``
+    launch on the bins of the forward writes d_value of the matmul levels
+    in place, ``msda_bwd`` the levels above the cutoff. Returns (d_value,
+    d_loc, d_att), contiguous."""
+    B, _, H, D = value.shape
+    N, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    value = value.contiguous()
+    loc, att = loc.float().contiguous(), att.contiguous()
+    grad_out = grad_out.to(value.dtype).contiguous()
+    # Every point of a query shares its gradient: (B*H, N*P, D).
+    g = grad_out.view(B, N, H, 1, D).permute(0, 2, 1, 3, 4).expand(
+        B, H, N, P, D).reshape(B * H, N * P, D)
+    d_value = torch.empty_like(value)
+    d_xy = torch.empty_like(xy)
+    d_att_t = torch.empty_like(att_t)
+    mm, gather = _split_levels(spatial_shapes)
+    if mm:
+        msda_mm_bwd_group(value, mm, xy, att_t, g, bins,
+                          out=(d_value, d_xy, d_att_t))
+    # d_loc = d_xy * (w, h), back in (B, N, H, L, P, 2) order.
+    sizes = _level_sizes(spatial_shapes, value.device)
+    d_loc = (d_xy * sizes[:, :, None, None]).view(
+        L, 2, B, H, N, P).permute(2, 4, 3, 0, 5, 1)
+    d_att = d_att_t.view(L, B, H, N, P).permute(1, 3, 2, 0, 4)
+    for lvl, start, h, w in gather:
+        v, l, a = _one_level(lvl, start, h, w, value, loc, att)
+        dv, dl, da = msda_bwd(v, ((h, w),), l, a, grad_out)
+        d_value[:, start:start + h * w] = dv
+        d_loc[:, :, :, lvl] = dl[:, :, :, 0]
+        d_att[:, :, :, lvl] = da[:, :, :, 0]
+    return d_value, d_loc.contiguous(), d_att.contiguous()
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        value, loc, att, xy, att_t = ctx.saved_tensors
-        B, _, H, D = value.shape
-        N, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
-        grad_out = grad_out.to(value.dtype).contiguous()
-        # Every point of a query shares its gradient: (B*H, N*P, D).
-        g = grad_out.view(B, N, H, 1, D).permute(0, 2, 1, 3, 4).expand(
-            B, H, N, P, D).reshape(B * H, N * P, D)
-        d_value = torch.empty_like(value)
-        d_xy = torch.empty_like(xy)
-        d_att_t = torch.empty_like(att_t)
-        mm, gather = _split_levels(ctx.spatial_shapes)
-        if mm:
-            msda_mm_bwd_group(value, mm, xy, att_t, g, ctx.bins,
-                              out=(d_value, d_xy, d_att_t))
-        # d_loc = d_xy * (w, h), back in (B, N, H, L, P, 2) order.
-        sizes = _level_sizes(ctx.spatial_shapes, value.device)
-        d_loc = (d_xy * sizes[:, :, None, None]).view(
-            L, 2, B, H, N, P).permute(2, 4, 3, 0, 5, 1)
-        d_att = d_att_t.view(L, B, H, N, P).permute(1, 3, 2, 0, 4)
-        for lvl, start, h, w in gather:
-            v, l, a = _one_level(lvl, start, h, w, value, loc, att)
-            dv, dl, da = msda_bwd(v, ((h, w),), l, a, grad_out)
-            d_value[:, start:start + h * w] = dv
-            d_loc[:, :, :, lvl] = dl[:, :, :, 0]
-            d_att[:, :, :, lvl] = da[:, :, :, 0]
-        return d_value, None, d_loc, d_att
+
+def mm_scratch_lengths(spatial_shapes: Shapes, BH: int, S: int
+                       ) -> Tuple[int, ...]:
+    """The length of the int32 bins of every grouped launch that an MSDA
+    call under backend ``"mm"`` makes (:func:`mm_table`'s scratch length:
+    the sorted samples of every matmul level, then the first position of
+    every bin), from the shapes alone: what the fake implementation of
+    ``dpft::msda_mm_fwd`` sizes its outputs by, with no device."""
+    mm, _ = _split_levels(tuple(map(tuple, spatial_shapes)))
+    lengths = []
+    for i in range(0, len(mm), MM_MAX_LEVELS):
+        group = mm[i:i + MM_MAX_LEVELS]
+        tiles = [math.prod(mm_tile_counts(h, w)) for _, _, h, w in group]
+        lengths.append(BH * (len(group) * S + sum(t + 2 for t in tiles)))
+    return tuple(lengths)
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -628,19 +649,22 @@ def _msda_bwd_cpu(value, spatial_shapes, sampling_locations,
 def _autograd_in_kernel():
     """Grad mode and autograd's dispatch keys inside an operator's kernel.
 
-    The dispatcher runs a kernel with the keys of autograd (and autocast)
-    excluded, so operations there record no graph whatever the grad mode.
-    The CPU backward recomputes the plain forward under autograd, the same
-    operations as autograd through ``ms_deform_attn_core_plain`` and so the
-    same bits; this lifts that exclusion for it. (``torch.func.vjp`` would
-    need no private guard, but fails under a dispatch mode such as
-    ``FlopCounterMode``.)
+    The dispatcher runs a kernel with the keys of autograd excluded, so
+    operations there record no graph whatever the grad mode. The CPU
+    backward recomputes the plain forward under autograd, the same
+    operations as autograd through the plain version and so the same bits;
+    this lifts that exclusion for it, and only that one: the autocast keys
+    stay as the caller's autocast state left them (lifting their exclusion
+    too would run the plain matmul form's products in bfloat16 outside any
+    autocast region). (``torch.func.vjp`` would need no private guard, but
+    fails under a dispatch mode such as ``FlopCounterMode``.)
     """
     C = torch._C
-    above_autograd = C._dispatch_keyset_full() - C._after_autograd_keyset
+    autograd = (C._dispatch_keyset_full_after(C.DispatchKey.AutocastCPU)
+                - C._after_autograd_keyset)
     with C._ForceDispatchKeyGuard(
             C._dispatch_tls_local_include_set(),
-            C._dispatch_tls_local_exclude_set() - above_autograd), \
+            C._dispatch_tls_local_exclude_set() - autograd), \
             torch.enable_grad():
         yield
 
@@ -670,13 +694,119 @@ msda_fwd_op.register_autograd(_msda_backward,
                               setup_context=_msda_setup_context)
 
 
-@register_flop_formula(torch.ops.dpft.msda_fwd)
+@torch.library.custom_op(
+    "dpft::msda_mm_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor value, int[] spatial_shapes, Tensor sampling_locations, "
+           "Tensor attention_weights) -> (Tensor, Tensor, Tensor, Tensor[])")
+def msda_mm_fwd_op(value, spatial_shapes, sampling_locations,
+                   attention_weights):
+    """Backend ``"mm"`` as an operator, ``spatial_shapes`` flattened.
+    Returns (out, xy, att_t, bins): the output (B, N, H * D) in the value
+    dtype, and what ``dpft::msda_mm_bwd`` takes besides the inputs: the
+    pixel coordinates xy (L, 2, B*H, N*P) float32, the attention weights
+    att_t (L, B*H, N*P) in batch-head-major order and the int32 bins of
+    every grouped launch (:func:`mm_scratch_lengths`). On the card
+    :func:`_msda_mm_fwd_card`; on the CPU the plain version, with xy and
+    att_t from ``mm_coords_plain`` and bins that nothing reads (zeros)."""
+    return _msda_mm_fwd_card(value, _pairs(spatial_shapes),
+                             sampling_locations, attention_weights)
+
+
+@msda_mm_fwd_op.register_kernel("cpu")
+def _msda_mm_fwd_cpu(value, spatial_shapes, sampling_locations,
+                     attention_weights):
+    shapes = _pairs(spatial_shapes)
+    out = ms_deform_attn_core_mm_plain(value, shapes, sampling_locations,
+                                       attention_weights)
+    xy, att_t = mm_coords_plain(sampling_locations, attention_weights,
+                                _level_sizes(shapes, value.device))
+    B, _, H, _ = value.shape
+    S = sampling_locations.shape[1] * sampling_locations.shape[4]
+    bins = [torch.zeros(n, dtype=torch.int32)
+            for n in mm_scratch_lengths(shapes, B * H, S)]
+    # Copies: an output may not alias an input.
+    return (out, xy.clone(memory_format=torch.contiguous_format),
+            att_t.clone(memory_format=torch.contiguous_format), bins)
+
+
+@msda_mm_fwd_op.register_fake
+def _msda_mm_fwd_fake(value, spatial_shapes, sampling_locations,
+                      attention_weights):
+    B, _, H, D = value.shape
+    N, L, P = (sampling_locations.shape[1], sampling_locations.shape[3],
+               sampling_locations.shape[4])
+    return (value.new_empty((B, N, H * D)),
+            value.new_empty((L, 2, B * H, N * P), dtype=torch.float32),
+            value.new_empty((L, B * H, N * P)),
+            [value.new_empty((n,), dtype=torch.int32)
+             for n in mm_scratch_lengths(_pairs(spatial_shapes), B * H,
+                                         N * P)])
+
+
+@torch.library.custom_op(
+    "dpft::msda_mm_bwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor value, int[] spatial_shapes, Tensor sampling_locations, "
+           "Tensor attention_weights, Tensor xy, Tensor att_t, Tensor[] bins, "
+           "Tensor grad_out) -> (Tensor, Tensor, Tensor)")
+def msda_mm_bwd_op(value, spatial_shapes, sampling_locations,
+                   attention_weights, xy, att_t, bins, grad_out):
+    """Gradients of ``dpft::msda_mm_fwd`` (d_value, d_loc, d_att) as an
+    operator, on the forward's xy, att_t and bins: on the card
+    :func:`_msda_mm_bwd_card`, on the CPU autograd through the plain
+    version, recomputed (the same bits as autograd through
+    ``ms_deform_attn_core_mm_plain``)."""
+    return _msda_mm_bwd_card(value, _pairs(spatial_shapes),
+                             sampling_locations, attention_weights, xy,
+                             att_t, bins, grad_out)
+
+
+@msda_mm_bwd_op.register_kernel("cpu")
+def _msda_mm_bwd_cpu(value, spatial_shapes, sampling_locations,
+                     attention_weights, xy, att_t, bins, grad_out):
+    with _autograd_in_kernel():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (value, sampling_locations, attention_weights)]
+        out = ms_deform_attn_core_mm_plain(leaves[0], _pairs(spatial_shapes),
+                                           *leaves[1:])
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
+@msda_mm_bwd_op.register_fake
+def _msda_mm_bwd_fake(value, spatial_shapes, sampling_locations,
+                      attention_weights, xy, att_t, bins, grad_out):
+    return (torch.empty_like(value), torch.empty_like(sampling_locations),
+            torch.empty_like(attention_weights))
+
+
+def _msda_mm_setup_context(ctx, inputs, output):
+    value, spatial_shapes, sampling_locations, attention_weights = inputs
+    _, xy, att_t, bins = output
+    ctx.spatial_shapes = spatial_shapes
+    ctx.save_for_backward(value, sampling_locations, attention_weights, xy,
+                          att_t, *bins)
+    ctx.mark_non_differentiable(xy, att_t, *bins)
+
+
+def _msda_mm_backward(ctx, grad_out, *_):
+    value, loc, att, xy, att_t, *bins = ctx.saved_tensors
+    d_value, d_loc, d_att = torch.ops.dpft.msda_mm_bwd(
+        value, ctx.spatial_shapes, loc, att, xy, att_t, bins,
+        grad_out.to(value.dtype).contiguous())
+    return d_value, None, d_loc, d_att
+
+
+msda_mm_fwd_op.register_autograd(_msda_mm_backward,
+                                 setup_context=_msda_mm_setup_context)
+
+
+# The function's operations, whichever form computes them.
+@register_flop_formula([torch.ops.dpft.msda_fwd, torch.ops.dpft.msda_mm_fwd])
 def _msda_fwd_flops(value_shape, spatial_shapes, loc_shape, att_shape, *_,
                     **__) -> int:
     return msda_operations(att_shape, value_shape[-1])
 
 
-@register_flop_formula(torch.ops.dpft.msda_bwd)
+@register_flop_formula([torch.ops.dpft.msda_bwd, torch.ops.dpft.msda_mm_bwd])
 def _msda_bwd_flops(value_shape, spatial_shapes, loc_shape, att_shape, *_,
                     **__) -> int:
     return msda_operations(att_shape, value_shape[-1], backward=True)

@@ -16,11 +16,14 @@ exported forward equals the port's saved and loaded program within rtol
 1e-4 / atol 2e-4 (the bound of test_torch_port_model); a fresh interpreter
 runs the artifact without the model code; export as a model's first call
 leaves its eager forward as it was; the export CLI writes an artifact of
-its ``--batch``; the matmul form refuses to export; the FLOP count equals a
-reckoning by forward hooks (``chip_smoke.reckon_flops``) exactly in every
-grad mode and under both MSDA backends, and ``Parameters`` equals JAX's
-``parameter_count``. Exports are few (each takes seconds): one per
-fixture, three in the file.
+its ``--batch``; under ``fuser.pallas_msda: "mm"`` the model exports through
+``dpft::msda_mm_fwd`` (its operators pass ``opcheck``, their gradients are
+the plain hybrid's bits, the bins are sized from the shapes as the card's
+launches size them) and equals the eager forward and JAX's export; the FLOP
+count equals a reckoning by forward hooks (``chip_smoke.reckon_flops``)
+exactly in every grad mode and under both MSDA backends, with no backend
+switch, and ``Parameters`` equals JAX's ``parameter_count``. Exports are
+few (each takes seconds): one per fixture, four in the file.
 """
 
 import json
@@ -210,14 +213,94 @@ def test_export_as_first_call_leaves_eager_forward_unchanged(threads):
                                    msg=key)
 
 
-def test_matmul_form_refuses_to_export(threads):
-    config = tiny_config()
+def test_matmul_form_exports_and_matches_eager_and_jax(tiny, tmp_path):
+    """Under ``fuser.pallas_msda: "mm"`` the program holds one
+    ``dpft.msda_mm_fwd`` node per view and iteration and no other MSDA
+    node; saved and loaded it gives the eager forward's bits and JAX's
+    exported forward under the same key (its fused matmul kernel in
+    interpret mode) within the bound of test_torch_port_model."""
+    import dpft_tpu.ops.deform_attn as jda
+
+    config, _, variables, _, batch_np = tiny
+    config = json.loads(json.dumps(config))
     config["model"]["fuser"]["pallas_msda"] = "mm"
     model = registry.build("dprt", config, device="cpu")
-    batch = {k: torch.from_numpy(v)
-             for k, v in make_batch(np.random.default_rng(0)).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export.export_forward(model, batch)
+    model.load_state_dict(state_dict_from_flax(variables, config),
+                          strict=True)
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    program = export.export_forward(model, batch)
+    export.save_exported(program, str(tmp_path / "mm.pt2"))
+    loaded = export.load_exported(str(tmp_path / "mm.pt2"))
+    fuser = config["model"]["fuser"]
+    for graph in (program, loaded):
+        assert _msda_nodes(graph) == \
+            ["dpft.msda_mm_fwd.default"] * (fuser["m_views"] * fuser["i_iter"])
+    got = loaded.module()(batch)
+    with torch.inference_mode():
+        eager = model(batch)
+    try:
+        jmodel = jbuild("dprt", config)
+        assert jda.get_msda_backend() == "pallas_mm"
+        jbatch = {k: jnp.asarray(v) for k, v in batch_np.items()}
+        want = jax_export_forward(jmodel, variables, jbatch).call(jbatch)
+    finally:
+        jda.set_msda_backend("xla")
+    for key in KEYS:
+        torch.testing.assert_close(got[key], eager[key], rtol=0, atol=0,
+                                   msg=key)
+        np.testing.assert_allclose(got[key].detach().numpy(),
+                                   np.asarray(want[key]), err_msg=key, **TOL)
+
+
+@pytest.mark.parametrize("op", ["msda_mm_fwd", "msda_mm_bwd"])
+def test_matmul_form_operators_pass_opcheck(op):
+    value, loc, att, grad = map(torch.from_numpy, _core_inputs(3, seed=6))
+    shapes = port._flat_shapes(SHAPES)
+    if op == "msda_mm_fwd":
+        args = (value.requires_grad_(True), shapes, loc.requires_grad_(True),
+                att.requires_grad_(True))
+    else:
+        _, xy, att_t, bins = torch.ops.dpft.msda_mm_fwd(value, shapes, loc,
+                                                        att)
+        args = (value, shapes, loc, att, xy, att_t, bins, grad)
+    result = torch.library.opcheck(getattr(torch.ops.dpft, op), args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_matmul_form_gradients_match_plain_bits(D):
+    """Autograd through ``dpft::msda_mm_fwd`` (whose backward is
+    ``dpft::msda_mm_bwd``, the plain version recomputed on the CPU) gives
+    the bits of autograd through ``ms_deform_attn_core_mm_plain``."""
+    value, loc, att, grad = _core_inputs(D, seed=D + 30)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (value, loc, att)]
+    out = port.ms_deform_attn_core(leaves[0], SHAPES, *leaves[1:],
+                                   backend="mm")
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(grad))
+    plain = [torch.from_numpy(a).requires_grad_(True)
+             for a in (value, loc, att)]
+    want = torch.autograd.grad(
+        port.ms_deform_attn_core_mm_plain(plain[0], SHAPES, *plain[1:]),
+        plain, torch.from_numpy(grad))
+    for name, g, w in zip(("d_value", "d_loc", "d_att"), got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.parametrize("shapes", [SHAPES, ((40, 50), (20, 25), (10, 13),
+                                             (5, 7), (3, 4), (2, 2), (1, 1),
+                                             (8, 9), (9, 9), (300, 301))])
+def test_bin_lengths_from_shapes_equal_the_launch_tables(shapes):
+    """The fake implementation sizes the bins from the shapes alone; the
+    card's launches allocate them from ``mm_table``: the same lengths, one
+    per launch of at most ``MM_MAX_LEVELS`` levels."""
+    B, H, D, S = 2, 4, 3, 28
+    mm, _ = port._split_levels(shapes)
+    tables = port._group_tables(mm, B, sum(h * w for h, w in shapes), H, D,
+                                S)
+    assert port.mm_scratch_lengths(shapes, B * H, S) == \
+        tuple(scratch for _, scratch in tables)
+    assert len(tables) == -(-len(mm) // port.MM_MAX_LEVELS)
 
 
 @pytest.fixture(scope="module")
@@ -285,7 +368,9 @@ def test_export_cli_needs_the_card_by_default(tree):
 
 @pytest.mark.parametrize("mode", ["grad", "no_grad", "inference_mode"])
 @pytest.mark.parametrize("backend", ["gather", "mm"])
-def test_flop_count_equals_reckoning(tiny, mode, backend):
+def test_flop_count_equals_reckoning(tiny, mode, backend, monkeypatch):
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+
     config, jmodel, variables, model, batch_np = tiny
     if backend == "mm":
         config = json.loads(json.dumps(config))
@@ -297,8 +382,17 @@ def test_flop_count_equals_reckoning(tiny, mode, backend):
     evaluator = CentralizedEvaluator(config=config, device="cpu")
     context = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
                "inference_mode": torch.inference_mode}[mode]
+    seen = []    # the backend of every MSDA call while counting
+
+    def core(*args, backend):
+        seen.append(backend)
+        return port.ms_deform_attn_core(*args, backend=backend)
+
+    monkeypatch.setattr(msda_layer, "ms_deform_attn_core", core)
     with context():
         got = evaluator.evaluate_complexity(model, [(batch_np, {})])
+    fuser = config["model"]["fuser"]
+    assert seen == [backend] * (fuser["m_views"] * fuser["i_iter"])
     assert got["FLOPS"] == reckon_flops(model, batch)
     assert got["Parameters"] == jax_parameter_count(variables["params"])
     # The count changes nothing: the gradients and the backend are back.

@@ -15,8 +15,9 @@ sides. bfloat16 within 2e-2 (bfloat16 rounding at other places).
 
 The CUDA kernels run only on the card, where chip_smoke.py holds them
 against these plain versions. What surrounds them on the card, the layout
-code of ``MSDAMMFunction``, is run here with the four kernel wrappers
-replaced by their plain versions.
+code of the card implementations of the operators ``dpft::msda_mm_fwd`` /
+``dpft::msda_mm_bwd``, is run here with the four kernel wrappers replaced
+by their plain versions.
 """
 
 import numpy as np
@@ -240,6 +241,31 @@ def test_val_layout_of_contiguous_and_in_place_levels():
         port._val_layout("t", view.transpose(3, 4), h, w)
 
 
+BINS = "the bins of the forward's launch"
+
+
+def _card_core(value, shapes, loc, att):
+    """The card implementations of ``dpft::msda_mm_fwd`` and
+    ``dpft::msda_mm_bwd`` as one differentiable function, the forward's
+    xy, att_t and bins handed to the backward as the operator's autograd
+    hands them."""
+    class Card(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, value, loc, att):
+            out, xy, att_t, ctx.bins = port._msda_mm_fwd_card(value, shapes,
+                                                              loc, att)
+            ctx.save_for_backward(value, loc, att, xy, att_t)
+            return out
+
+        @staticmethod
+        def backward(ctx, grad_out):
+            value, loc, att, xy, att_t = ctx.saved_tensors
+            return port._msda_mm_bwd_card(value, shapes, loc, att, xy, att_t,
+                                          ctx.bins, grad_out)
+
+    return Card.apply(value, loc, att)
+
+
 def _emulated_kernels(monkeypatch):
     """The kernel wrappers (per level, grouped, and kernel #1) computed by
     their plain versions on the tensors they are given, outputs written
@@ -273,10 +299,10 @@ def _emulated_kernels(monkeypatch):
             mm_fwd(port._level_view(value, start, h, w), xy[lvl, 0],
                    xy[lvl, 1], att_t[lvl], h, w, out=out[k])
         port.msda_mm_fwd.launches -= len(levels) - 1
-        return ["bins"]
+        return [BINS]
 
     def mm_bwd_group(value, levels, xy, att_t, grad_out, bins, out):
-        assert bins == ["bins"]        # the forward's bins come back
+        assert bins == [BINS]          # the forward's bins come back
         d_value, d_xy, d_att_t = out
         for lvl, start, h, w in levels:
             mm_bwd(port._level_view(value, start, h, w), xy[lvl, 0],
@@ -310,14 +336,15 @@ def _emulated_kernels(monkeypatch):
 @pytest.mark.parametrize("shapes", [SHAPES, ((1, 601), (4, 3), (300, 301),
                                              (2, 2))])
 def test_card_path_layout_with_emulated_kernels(monkeypatch, shapes):
-    """``MSDAMMFunction`` (what a CUDA tensor takes) with its kernels
-    emulated: its shuffles, in-place level views and gradient assembly
+    """The card implementations of the ``"mm"`` operators (what a CUDA
+    tensor takes) with their kernels emulated: their shuffles, in-place
+    level views and gradient assembly
     give the plain hybrid's outputs and gradients, level by level, with
     one launch per direction for all matmul levels of the call and one of
     kernel #1 per level above the cutoff."""
     _emulated_kernels(monkeypatch)
     inputs = _core_inputs(3, shapes=shapes, seed=7)
-    got, got_grads = _port_core(port.MSDAMMFunction.apply, *inputs,
+    got, got_grads = _port_core(_card_core, *inputs,
                                 shapes=shapes)
     n_gather = sum(h + w > port._MATMUL_MAX_HW for h, w in shapes)
     n_mm = len(shapes) - n_gather
