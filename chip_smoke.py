@@ -72,6 +72,30 @@ not 0:
    Expected counts are computed from the model's level shapes.
 9. Train step time by CUDA events at B=4 in f32 and bf16 (mean of 10 steps
    after 3 warm-up steps), the host share of matching, peak memory.
+9b. Data parallel (the train_dp path, ``phase_data_parallel``): the
+   flagship B=4 f32 step with dropout 0 (each rank draws its own masks) on
+   the model from seed 0 without a process group is the reference. In a
+   one-rank NCCL group joined through ``parallel.init_distributed``'s
+   torchrun route, the step through ``parallel.distribute`` (global
+   BatchNorm, DistributedDataParallel) equals it (loss 1e-4 relative,
+   gradients and BatchNorm running statistics 1e-3 of their largest) with
+   12 ``msda_fwd`` and 12 ``msda_bwd`` launches. Then two spawned
+   processes share the card in a gloo group (NCCL refuses two ranks on
+   one card), two rows each (the eval_dp and train_dp paths): the
+   evaluator on the ranks gives one process's FLOPs and parameters
+   exactly and its metrics within 1e-4; in float64 on the plain core the
+   loss, the all-reduced gradients and the running statistics equal the
+   float64 reference within 1e-6 of their largest; in float32 with the
+   kernels the loss (1e-4) and the running statistics (1e-3) are held and
+   the gradients printed beside the float32-vs-float64 spread of one
+   process, which is as large; each rank holds msda_fwd and msda_bwd on
+   every MSDA call of its step (B=2, its own inputs and output gradients)
+   against the plain version at phase 1's and 6's bounds, and launches 12
+   + 12 in the step. Float64 probes without a group print where the
+   float32 spread comes from (perturbed inputs, locations moved by an
+   ulp). Printed: ms per step (CUDA events, 5 after 2) without a group,
+   under DDP alone at world size 1, under DDP with the global BatchNorm
+   at world size 1, and on each gloo rank, with the peak memory of each.
 10. Matmul-form kernels vs plain: ``msda_mm_fwd`` against the plain level
    op ``sample_level_fused_plain`` and ``msda_mm_bwd`` against
    torch.autograd.grad through it, in float32, at border cases (D = 2, 3,
@@ -188,8 +212,10 @@ not 0:
    script its total.
 
 The kernel report gives, for every kernel, its launches on every main
-path (serve, export, train, serve_mm, export_mm, train_mm, serve_<family>
-and train_<family> of the three families, prepare), its error against the plain version, its time, the plain version's,
+path (serve, export, train, eval_dp and train_dp (rank 0's: 9 eval
+forwards, one step), serve_mm,
+export_mm, train_mm, serve_<family> and train_<family> of the three
+families, prepare), its error against the plain version, its time, the plain version's,
 and ``bound_ms``: the least time the card could take, the larger of the
 bytes the function must move (every input read once, every output written
 once; for MSDA only the 32-byte sectors of the value map that this run's
@@ -1529,6 +1555,541 @@ def phase_train_timing(config, model, label="train"):
               f"on the host {1e3 * np.mean(host[-10:]):.3f} ms = "
               f"{100 * share:.1f}% of the step; peak memory {peak:.3f} GiB")
     model.compute_dtype = torch.float32
+
+
+DP_RANKS = 2  # gloo ranks that share the one card in phase_data_parallel
+
+
+def _dp_config(config):
+    """The flagship config with dropout 0: each rank of a data-parallel
+    step draws its own dropout masks, so only without dropout is the step
+    the single-process step on the same rows."""
+    config = json.loads(json.dumps(config))
+    config["model"]["fuser"]["dropout"] = 0.0
+    return config
+
+
+def _rows(tree, rank, world):
+    per = next(iter(tree.values())).shape[0] // world
+    return {k: v[rank * per:(rank + 1) * per] for k, v in tree.items()}
+
+
+def _bn_stats(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _dp_parity_step(trainer, net, model, batch, targets):
+    """One train step from cleared gradients: (loss, gradients, BatchNorm
+    running statistics after it)."""
+    model.zero_grad(set_to_none=True)
+    torch.manual_seed(3)
+    loss = trainer.train_step(net, batch, targets)["loss"]
+    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss, grads, _bn_stats(model)
+
+
+def _compare_stats(what, stats, ref, tol=1e-3):
+    """BatchNorm running statistics, each buffer within ``tol`` of its
+    largest element."""
+    if stats.keys() != ref.keys():
+        raise AssertionError(f"{what}: other BatchNorm buffers")
+    worst = max((((stats[k] - v).abs().max() / v.abs().max().clamp_min(
+        1e-30)).item(), k) for k, v in ref.items())
+    if not worst[0] <= tol:
+        raise AssertionError(f"{what}: running statistics of {worst[1]}: "
+                             f"err {worst[0]:.3e} of its max exceeds {tol}")
+    print(f"[data_parallel] {what}: {len(ref)} BatchNorm running statistics,"
+          f" worst {worst[0]:.3e} of its max at {worst[1]} (tol {tol}) ok")
+
+
+def _timed_steps(trainer, net, model, batch, targets, steps=5, warmup=2):
+    """(mean ms, std ms, peak GiB, GiB above what the process held before)
+    of train steps (forward, matching, loss, metric, backward, AdamW) by
+    CUDA events."""
+    optimizer = trainer.optimizer_factory(model.parameters())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(warmup + steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(net, batch, targets)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    return (float(np.mean(times)), float(np.std(times)), peak / 2 ** 30,
+            (peak - held) / 2 ** 30)
+
+
+def _dp_model(config, dtype=torch.float32):
+    """The flagship model from seed 0 on the card in ``dtype``; in float64
+    with the plain MSDA core (the kernels take float32 and bfloat16)."""
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    msda_layer.ms_deform_attn_core = (_plain_core if dtype == torch.float64
+                                      else da.ms_deform_attn_core)
+    return registry.build(config["model"]["name"], config, device="cuda",
+                          seed=0).to(dtype)
+
+
+def _in_dtype(tree, dtype):
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
+def _recording_core(calls, core, move=None):
+    """``core`` that appends to ``calls`` each call's inputs (value,
+    shapes, sampling locations, attention weights) and, once the backward
+    has run, its output gradient; with ``move``, the sampling locations
+    go through ``move`` first."""
+    def recorded(value, shapes, loc, att, backend="gather"):
+        if move is not None:
+            loc = move(loc)
+        out = core(value, shapes, loc, att, backend)
+        call = {"args": (value.detach(), shapes, loc.detach(), att.detach())}
+        calls.append(call)
+        if out.requires_grad:
+            out.register_hook(
+                lambda g: call.__setitem__("grad_out", g.detach()))
+        return out
+    return recorded
+
+
+def _ulp_move(seed):
+    """Moves every sampling coordinate by one float32 ulp, up or down at
+    random (the gradient passes through unchanged)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def move(loc):
+        up = torch.rand(loc.shape, generator=gen, device=loc.device) < 0.5
+        to = torch.where(up, math.inf, -math.inf).to(loc.dtype)
+        return loc + (torch.nextafter(loc.detach(), to) - loc.detach())
+    return move
+
+
+def _location_moves(calls, ref_calls):
+    """(points, points whose float32 sampling location differs from the
+    reference's, points among them that land in another pixel cell, i.e.
+    whose bilinear corners change) over all MSDA calls of two forwards."""
+    if len(calls) != len(ref_calls):
+        raise AssertionError(f"{len(calls)} MSDA calls against "
+                             f"{len(ref_calls)}")
+    points = moved = crossed = 0
+    for call, ref in zip(calls, ref_calls):
+        shapes, loc, ref_loc = call["args"][1], call["args"][2], \
+            ref["args"][2]
+        points += loc[..., 0].numel()
+        moved += (loc != ref_loc).any(-1).sum().item()
+        for lvl, (h, w) in enumerate(shapes):
+            size = torch.tensor([w, h], dtype=torch.float32,
+                                device=loc.device)
+            cell, ref_cell = ((t[:, :, :, lvl].float() * size - 0.5).floor()
+                              for t in (loc, ref_loc))
+            crossed += (cell != ref_cell).any(-1).sum().item()
+    return points, moved, crossed
+
+
+def _hold_calls(calls):
+    """Holds ``msda_fwd`` and ``msda_bwd`` on every recorded call's own
+    inputs and output gradient against the plain version, at phase 1's
+    and phase 6's float32 tolerances; returns the largest errors."""
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    worst = dict.fromkeys(("msda_fwd", "d_value", "d_loc", "d_att"), 0.0)
+    for i, call in enumerate(calls):
+        value, shapes, loc, att = call["args"]
+        if "grad_out" not in call:
+            raise AssertionError(f"MSDA call {i} got no output gradient")
+        with torch.inference_mode():
+            got = da.msda_fwd(value, shapes, loc, att)
+            want = da.ms_deform_attn_core_plain(value, shapes, loc, att)
+        tol = TOL[torch.float32]
+        worst["msda_fwd"] = max(worst["msda_fwd"],
+                                (got - want).abs().max().item())
+        if not torch.allclose(got, want, atol=tol, rtol=tol):
+            raise AssertionError(f"msda_fwd, MSDA call {i} of the step: max"
+                                 f" abs err {worst['msda_fwd']:.3e}")
+        grads = da.msda_bwd(value, shapes, loc, att, call["grad_out"])
+        wants = _plain_grads(value, shapes, loc, att, call["grad_out"])
+        for name, g, w in zip(("d_value", "d_loc", "d_att"), grads, wants):
+            err = (g - w).abs().max().item()
+            bound = BWD_TOL[torch.float32] * (1.0 + w.abs().max().item())
+            if not err <= bound:
+                raise AssertionError(f"msda_bwd {name}, MSDA call {i} of "
+                                     f"the step: max abs err {err:.3e} "
+                                     f"exceeds {bound:.3e}")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def _dp_evaluate(config, model, batch, targets):
+    """The evaluator's metrics (``evaluate_one_epoch``), forward latency (2
+    + 5 forwards) and FLOPs on one batch of host rows, in eval mode."""
+    from dpft_tpu_torch.evaluation import CentralizedEvaluator
+
+    evaluator = CentralizedEvaluator.from_config(config, device="cuda",
+                                                 repetitions=5, warmup=2)
+    loader = [(batch, targets)]
+    model.eval()
+    try:
+        return {**evaluator.evaluate_one_epoch(model, loader),
+                **evaluator.evaluate_inference_time(model, loader),
+                **evaluator.evaluate_complexity(model, loader)}
+    finally:
+        model.train()
+
+
+def _host_batch(config, seed):
+    """``_cuda_batch``'s batch and targets as host arrays."""
+    from dpft_tpu_torch.utils.example import example_batch, example_targets
+
+    return (example_batch(config, B=B_TRAIN, cam_hw=(512, 910), seed=seed),
+            example_targets(config, B=B_TRAIN, seed=seed))
+
+
+def _dp_rank(rank, world, store, tmp):
+    """One of ``world`` processes on the one card, in a gloo group at the
+    file ``store``, on rows ``rank * 4 / world`` of the B=4 batch: the
+    evaluator on those rows (float32, the kernels) and its launches; then
+    through ``parallel.distribute`` (global BatchNorm, DDP) one float32
+    step with the kernels and its launches, ``msda_fwd`` and ``msda_bwd``
+    held against the plain version on each MSDA call's own inputs and
+    output gradient of that step, its step times and peak memory, and one
+    float64 step on the plain core. Writes ``tmp/rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch import parallel
+    from dpft_tpu_torch.ops import deform_attn as da
+    from dpft_tpu_torch.training import CentralizedTrainer
+    from dpft_tpu_torch.utils.device import use_full_float32
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    use_full_float32()
+    try:
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                world_size=world, rank=rank)
+        with open(os.path.join(ROOT, "config", "kradar.json")) as f:
+            config = _dp_config(json.load(f))
+        trainer = CentralizedTrainer.from_config(config)
+        batch, targets = (_rows(t, rank, world)
+                          for t in _cuda_batch(config, seed=20))
+        result = {}
+        for dtype in (torch.float32, torch.float64):
+            model = _dp_model(config, dtype)
+            calls = []
+            if dtype == torch.float32:
+                _reset_launches()
+                result["eval"] = _dp_evaluate(config, model, *(
+                    _rows(t, rank, world)
+                    for t in _host_batch(config, seed=20)))
+                result["eval_launches"] = _read_launches()
+                msda_layer.ms_deform_attn_core = _recording_core(
+                    calls, msda_layer.ms_deform_attn_core)
+            net = parallel.distribute(model)
+            _reset_launches()
+            step = _dp_parity_step(trainer, net, model,
+                                   _in_dtype(batch, dtype),
+                                   _in_dtype(targets, dtype))
+            name = str(dtype)[6:]
+            result[name] = {
+                "loss": step[0], "launches": _read_launches(),
+                "grads": {k: v.cpu() for k, v in step[1].items()},
+                "stats": {k: v.cpu() for k, v in step[2].items()},
+                "types": sorted({type(m).__name__ for m in model.modules()
+                                 if isinstance(m, torch.nn.BatchNorm2d)})}
+            if dtype == torch.float32:
+                msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+                result["kernels"] = (len(calls), _hold_calls(calls))
+                del calls
+                result["times"] = _timed_steps(trainer, net, model, batch,
+                                               targets)
+            del net, model
+            torch.cuda.empty_cache()
+        if rank > 0:  # the gradients are all-reduced: rank 0 has them
+            for name in ("float32", "float64"):
+                del result[name]["grads"], result[name]["stats"]
+        torch.save(result, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _print_spread(what, step, ref_step, calls, ref_calls):
+    """How far a step's gradients are from the float64 reference's, beside
+    how many sampling points of its forward moved (printed, not held)."""
+    points, moved, crossed = _location_moves(calls, ref_calls)
+    (loss, grads), (ref_loss, ref_grads) = step[:2], ref_step[:2]
+    if set(grads) != set(ref_grads):
+        raise AssertionError(f"{what}: other parameters reached")
+    errs = {k: ((g - ref_grads[k]).abs().max()
+                / ref_grads[k].abs().max().clamp_min(1e-30)).item()
+            for k, g in grads.items()}
+    worst = max(errs, key=errs.get)
+    offsets = max(v for k, v in errs.items()
+                  if k.endswith("sampling_offsets.weight"))
+    print(f"[data_parallel] spread, {what} vs the float64 reference: of "
+          f"{points} sampling points per forward {moved} at another float32 "
+          f"location, {crossed} in another pixel cell; loss rel err "
+          f"{abs(loss - ref_loss) / abs(ref_loss):.3e}; worst gradient "
+          f"{errs[worst]:.3e} of its max at {worst}, worst "
+          f"sampling_offsets.weight {offsets:.3e} (printed, not held)")
+
+
+def _compare_evaluations(config, view_shapes, ranks, want):
+    """Rank 0's evaluation of the gloo ranks against one process's: FLOPs
+    and parameters equal, every metric within 1e-4, a latency; rank 1
+    returns the latency alone. Rank 0 ran 9 forwards (1 for the metrics,
+    7 timed, 1 counted), rank 1 8."""
+    got = ranks[0]["eval"]
+    latency = {"Inference_time_mean_ms", "Inference_time_std_ms"}
+    if set(ranks[1]["eval"]) != latency or set(got) != set(want):
+        raise AssertionError(f"evaluations {[r['eval'] for r in ranks]} "
+                             f"against {want}")
+    for k in ("FLOPS", "Parameters"):
+        if got[k] != want[k]:
+            raise AssertionError(f"{k}: {got[k]} on the ranks, {want[k]} in "
+                                 "one process")
+    for k in config["evaluate"]["metrics"]:
+        if not abs(got[k] - want[k]) <= 1e-4:
+            raise AssertionError(f"{k}: {got[k]} on the ranks, {want[k]} in "
+                                 "one process")
+    if not got["Inference_time_mean_ms"] > 0:
+        raise AssertionError(f"latency {got['Inference_time_mean_ms']}")
+    for r, forwards in ((0, 9), (1, 8)):
+        launches = ranks[r]["eval_launches"]
+        if launches != _expected_launches(config, view_shapes, forwards, 0):
+            raise AssertionError(f"gloo rank {r} launched {launches} in its "
+                                 f"evaluation ({forwards} forwards)")
+    print(f"[data_parallel] evaluate on {DP_RANKS} gloo ranks, "
+          f"{B_TRAIN // DP_RANKS} rows each, vs one process, B={B_TRAIN} "
+          "f32: " + ", ".join(f"{k} {got[k]:.6g} vs {want[k]:.6g}"
+                              for k in want)
+          + f" (FLOPS and Parameters equal, metrics within 1e-4; latency of "
+          f"the DP forward, 5 after 2); {ranks[0]['eval_launches']['msda_fwd']}"
+          " msda_fwd launches on rank 0 (9 forwards) ok")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_data_parallel(config, view_shapes):
+    """Data parallelism on the one card (the train_dp and eval_dp paths).
+    The reference is the flagship B=4 step (dropout 0, the model from seed
+    0) without a process group, in float32 with the kernels and in float64
+    on the plain core, and the evaluator on the same batch in one process.
+
+    (1) A one-rank NCCL group joined through ``init_distributed``'s
+    torchrun route: the float32 step through ``parallel.distribute``
+    equals the reference (loss 1e-4 relative, gradients and running
+    statistics 1e-3 of their largest); ms per step without a group, under
+    DDP alone, under DDP with the global BatchNorm.
+
+    (2) ``DP_RANKS`` processes on the one card in a gloo group (NCCL
+    refuses two ranks on one card), two rows each. The evaluator on the
+    ranks gives the one-process FLOPs and parameters exactly and its
+    metrics within 1e-4, with 12 ``msda_fwd`` launches per forward. In
+    float64 the loss, all-reduced gradients and running statistics equal
+    the float64 reference's within 1e-6 of their largest; in float32 the
+    loss within 1e-4 and the running statistics within 1e-3, while the
+    gradients are printed, not held: the float32 step without a group is
+    itself that far from the float64 one. Each rank holds ``msda_fwd``
+    and ``msda_bwd`` on every MSDA call of its float32 step (B=2, its own
+    inputs and output gradients) against the plain version, and launched
+    each 12 times in that step; ms per step and peak memory per rank.
+
+    (3) Where the float32 spread comes from, in float64 without a group
+    (printed, not held): the reference step again; with the sensor inputs
+    scaled by 1 + eps z (eps 1e-12 and 1e-10: does the spread grow in
+    proportion, as a smooth response does?); with every sampling location
+    moved by one float32 ulp. Each against the reference: the gradients'
+    spread, and how many sampling points sit at another float32 location
+    or in another pixel cell (where the bilinear derivative by the
+    location jumps); the same for the float32 step.
+
+    Returns rank 0's launches in its float32 step and in its evaluation.
+    """
+    import multiprocessing
+
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch import parallel
+    from dpft_tpu_torch.ops import deform_attn as da
+    from dpft_tpu_torch.training import CentralizedTrainer
+
+    config = _dp_config(config)
+    trainer = CentralizedTrainer.from_config(config)
+    batch, targets = _cuda_batch(config, seed=20)
+    expected = _expected_launches(config, view_shapes, 1, 1)
+
+    model = _dp_model(config)
+    eval_ref = _dp_evaluate(config, model, *_host_batch(config, seed=20))
+    calls32 = []
+    msda_layer.ms_deform_attn_core = _recording_core(calls32,
+                                                     da.ms_deform_attn_core)
+    ref = _dp_parity_step(trainer, model, model, batch, targets)
+    msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+    times = {"no group": _timed_steps(trainer, model, model, batch,
+                                      targets)}
+    del model
+    model64 = _dp_model(config, torch.float64)
+    batch64, targets64 = (_in_dtype(t, torch.float64)
+                          for t in (batch, targets))
+
+    def nudged(eps):
+        gen = torch.Generator("cuda").manual_seed(5)
+        return {k: v * (1 + eps * torch.randn(v.shape, generator=gen,
+                                              device="cuda", dtype=v.dtype))
+                if k in config["model"]["inputs"] else v
+                for k, v in batch64.items()}
+
+    probes = {}
+    for probe, inputs, move in (
+            ("reference", batch64, None), ("reference again", batch64, None),
+            *((f"sensor inputs x (1 + {eps:g} z)", nudged(eps), None)
+              for eps in (1e-12, 1e-10)),
+            ("every location moved by one float32 ulp", batch64,
+             _ulp_move(6))):
+        calls = []
+        msda_layer.ms_deform_attn_core = _recording_core(calls, _plain_core,
+                                                         move)
+        probes[probe] = (_dp_parity_step(trainer, model64, model64, inputs,
+                                         targets64), calls)
+    del model64, batch64, targets64
+    msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+    ref64, calls64 = probes.pop("reference")
+    for probe, (step, calls) in [("float32, the kernels", (ref, calls32)),
+                                 *probes.items()]:
+        _print_spread(probe, step, ref64, calls, calls64)
+    del probes, calls32, calls64
+    torch.cuda.empty_cache()
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        parallel.init_distributed(config, "cuda")
+        if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+            raise AssertionError(f"group {dist.get_backend()} of "
+                                 f"{dist.get_world_size()}")
+        model = _dp_model(config)
+        net = DistributedDataParallel(model, device_ids=[0],
+                                      broadcast_buffers=False,
+                                      find_unused_parameters=True)
+        times["DDP alone, NCCL, world 1"] = _timed_steps(
+            trainer, net, model, batch, targets)
+        del net, model
+        model = _dp_model(config)
+        net = parallel.distribute(model)
+        _reset_launches()
+        step = _dp_parity_step(trainer, net, model, batch, targets)
+        launches = _read_launches()
+        if launches != expected:
+            raise AssertionError(f"the NCCL step launched {launches}, "
+                                 f"expected {expected}")
+        _compare_steps("DDP + global BatchNorm, NCCL world 1", "no group",
+                       step[:2], ref[:2])
+        _compare_stats("NCCL world 1 vs no group", step[2], ref[2])
+        times["DDP + global BatchNorm, NCCL, world 1"] = _timed_steps(
+            trainer, net, model, batch, targets)
+        del net, model
+    finally:
+        parallel.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_dp_rank,
+                             args=(r, DP_RANKS, os.path.join(tmp, "store"),
+                                   tmp)) for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_RANKS:
+            raise AssertionError(f"the gloo ranks exited with {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=True) for r in range(DP_RANKS)]
+
+    def on_cpu(step):
+        return (step[0], {k: v.cpu() for k, v in step[1].items()},
+                {k: v.cpu() for k, v in step[2].items()})
+
+    ref, ref64 = on_cpu(ref), on_cpu(ref64)
+    for name, want, tol in (("float64", ref64, 1e-6),
+                            ("float32", ref, None)):
+        got = ranks[0][name]
+        if {r[name]["loss"] for r in ranks} != {got["loss"]}:
+            raise AssertionError(
+                f"{name}: the ranks' losses {[r[name]['loss'] for r in ranks]}")
+        for r, result in enumerate(ranks):
+            if result[name]["types"] != ["GlobalBatchNorm2d"]:
+                raise AssertionError(f"rank {r}: {result[name]['types']}")
+        _compare_steps(f"{DP_RANKS} gloo ranks on one card, {name}",
+                       f"no group, {name}", (got["loss"], got["grads"]),
+                       want[:2], tol=tol)
+        _compare_stats(f"{DP_RANKS} gloo ranks vs no group, {name}",
+                       got["stats"], want[2], tol=tol or 1e-3)
+    for r, result in enumerate(ranks):
+        if result["float32"]["launches"] != expected:
+            raise AssertionError(f"gloo rank {r} launched "
+                                 f"{result['float32']['launches']}, "
+                                 f"expected {expected}")
+        n_calls, worst = result["kernels"]
+        if n_calls != expected["msda_fwd"]:
+            raise AssertionError(f"gloo rank {r} recorded {n_calls} MSDA "
+                                 "calls")
+        print(f"[data_parallel] gloo rank {r}: msda_fwd and msda_bwd on the "
+              f"{n_calls} MSDA calls of its float32 step (B="
+              f"{B_TRAIN // DP_RANKS}, its own inputs and output gradients) "
+              "against the plain version: max abs err " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in worst.items())
+              + f" (tol {TOL[torch.float32]} forward, "
+              f"{BWD_TOL[torch.float32]} x (1 + max) backward) ok")
+        times[f"gloo rank {r} of {DP_RANKS}, {B_TRAIN // DP_RANKS} rows"] = \
+            result["times"]
+    _compare_evaluations(config, view_shapes, ranks, eval_ref)
+    print(f"[data_parallel] launches of each gloo rank in its float32 step: "
+          f"{ranks[0]['float32']['launches']} (expected {expected})")
+    for name, (ms, std, peak, above) in times.items():
+        print(f"[data_parallel] B={B_TRAIN} f32 step, {name}: {ms:.3f} ms "
+              f"(std {std:.3f}, 5 steps by CUDA events after 2); peak memory "
+              f"{peak:.3f} GiB, {above:.3f} GiB above what the process held "
+              f"before")
+    return {"train_dp": ranks[0]["float32"]["launches"],
+            "eval_dp": ranks[0]["eval_launches"]}
 
 
 def _mm_level_inputs(BH, h, w, D, S, dtype, seed, case="random"):
@@ -2982,6 +3543,8 @@ def main():
     paths["train"] = phase_train(config, model, view_shapes)
     _assert_full_float32("the train phase")
     phase_train_timing(config, model)
+    paths.update(_timed("data_parallel", phase_data_parallel, config,
+                        view_shapes))
 
     mm_fwd_report, mm_bwd_report = phase_mm_vs_plain(view_shapes)
     phase_core_calls(view_shapes)

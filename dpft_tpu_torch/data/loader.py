@@ -27,6 +27,12 @@ def _collate(samples) -> Batch:
     return inputs, targets
 
 
+def _with_mask(batch: Batch, mask) -> Batch:
+    if mask is not None:
+        batch[1]["sample_mask"] = mask
+    return batch
+
+
 class Subset:
     """Map-style view of a dataset restricted to the given indices.
 
@@ -66,7 +72,7 @@ class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 0, drop_last: bool = False,
                  pad_last: bool = False, prefetch: int = 2,
-                 seed: int | None = None):
+                 seed: int | None = None, shard: Tuple[int, int] = (0, 1)):
         """pad_last: pad a short final batch to batch_size by repeating its
         last sample and add a ``sample_mask`` (B,) bool to the targets of
         EVERY batch (stable jit signature). Downstream consumers (loss,
@@ -74,7 +80,27 @@ class DataLoader:
         partial-batch policy: a B' < B batch cannot be laid out over the
         mesh 'data' axis and would force a tail-batch recompile; the
         reference tolerates ragged batches trivially (reference
-        loader.py:37-44) so the policy is TPU-specific."""
+        loader.py:37-44) so the policy is TPU-specific.
+
+        shard=(i, n): data parallelism within a node
+        (dpft_tpu_torch.parallel). Batches are the node's batches of
+        ``batch_size`` in one order on all n ranks, and this loader loads
+        and yields only the i-th of n equal row blocks of each, padded
+        rows and ``sample_mask`` included. So the n ranks must draw the
+        same order: with ``shuffle`` a seed is required. A short last
+        batch cannot be split, so drop_last or pad_last is required."""
+        index, count = shard
+        if count > 1:
+            if batch_size % count:
+                raise ValueError(f"batch_size={batch_size} must divide over "
+                                 f"the node's {count} ranks")
+            if shuffle and seed is None:
+                raise ValueError(
+                    "shuffling under data parallelism needs computing.seed:"
+                    " every rank of a node must draw the same order")
+            if not (drop_last or pad_last):
+                raise ValueError("under data parallelism a short last batch "
+                                 "needs drop_last or pad_last")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -84,21 +110,26 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self._epoch = 0
         self._seed = seed
+        self.shard = (index, count)
 
-    def _pad(self, batch: Batch, idx=None) -> Batch:
-        inputs, targets = batch
-        b = next(iter(inputs.values())).shape[0]
-        B = self.batch_size
-        mask = np.zeros(B, bool)
+    def _real(self, idx) -> np.ndarray:
+        """The rows of ``idx`` that are real samples."""
         # Multi-host lockstep padding (Subset.real_mask): wrap-around
         # duplicate rows are weighted out of metrics like tail padding.
         # The mask must be in THIS dataset's index space — a delegating
         # wrapper around a sharded Subset would surface the inner mask
         # with the wrong indexing, so mismatched lengths are ignored.
         real = getattr(self.dataset, "real_mask", None)
-        if real is not None and len(real) != len(self.dataset):
-            real = None
-        mask[:b] = True if real is None or idx is None else real[idx]
+        if real is None or len(real) != len(self.dataset):
+            return np.ones(len(idx), bool)
+        return np.asarray(real[idx], bool)
+
+    def _pad(self, batch: Batch, idx=None) -> Batch:
+        inputs, targets = batch
+        b = next(iter(inputs.values())).shape[0]
+        B = self.batch_size
+        mask = np.zeros(B, bool)
+        mask[:b] = True if idx is None else self._real(idx)
 
         def pad(a):
             if b == B:
@@ -132,14 +163,35 @@ class DataLoader:
             batches.append(idx)
         return batches
 
+    def _shard(self, batches):
+        """This rank's rows of each node batch, and their ``sample_mask``
+        (None without pad_last). A pad_last batch is padded first, by
+        repeating its last index, as ``_pad`` repeats its last sample."""
+        index, count = self.shard
+        per = self.batch_size // count
+        rows = slice(index * per, (index + 1) * per)
+        for idx in batches:
+            mask = None
+            if self.pad_last:
+                mask = np.zeros(self.batch_size, bool)
+                mask[:len(idx)] = self._real(idx)
+                idx = np.concatenate([idx, np.repeat(
+                    idx[-1:], self.batch_size - len(idx))])
+                mask = mask[rows]
+            yield idx[rows], mask
+
     def __iter__(self) -> Iterator[Batch]:
-        batches = self._batch_indices()
-        finish = self._pad if self.pad_last else (lambda b, idx=None: b)
+        if self.shard[1] > 1:
+            batches = list(self._shard(self._batch_indices()))
+            finish = _with_mask
+        else:
+            batches = [(idx, idx) for idx in self._batch_indices()]
+            finish = self._pad if self.pad_last else (lambda b, idx: b)
 
         if self.num_workers == 0:
-            for idx in batches:
+            for idx, extra in batches:
                 yield finish(_collate([self.dataset[int(i)] for i in idx]),
-                             idx)
+                             extra)
             return
 
         # Threaded prefetch: decode samples in a pool, assemble batches in
@@ -150,13 +202,13 @@ class DataLoader:
 
         def produce():
             try:
-                for idx in batches:
+                for idx, extra in batches:
                     if stop.is_set():
                         return
                     futures = [pool.submit(self.dataset.__getitem__, int(i))
                                for i in idx]
                     out.put(finish(
-                        _collate([f.result() for f in futures]), idx))
+                        _collate([f.result() for f in futures]), extra))
             except BaseException as exc:  # propagate to consumer
                 out.put(exc)
             finally:
@@ -188,7 +240,12 @@ def load_listed(dataset, config: Dict[str, Any], drop_last: bool | None = None,
     a data=2 mesh fails device_put). Padded rows carry a ``sample_mask``
     that loss/metrics weight out and the exporter skips, so padding is
     safe for both eval and train callers; loaders that drop the tail
-    (train CLI policy) have nothing to pad."""
+    (train CLI policy) have nothing to pad.
+
+    Under data parallelism the loader yields this rank's rows of each
+    node batch (``shard``, from dpft_tpu_torch.parallel)."""
+    from dpft_tpu_torch.parallel import local_rank_index, local_world_size
+
     train_cfg = config.get("train", {})
     drop = bool(drop_last) if drop_last is not None else False
     return DataLoader(
@@ -199,4 +256,5 @@ def load_listed(dataset, config: Dict[str, Any], drop_last: bool | None = None,
         drop_last=drop,
         pad_last=(not drop) if pad_last is None else pad_last,
         seed=config.get("computing", {}).get("seed"),
+        shard=(local_rank_index(), local_world_size()),
     )

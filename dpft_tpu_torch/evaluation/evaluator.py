@@ -7,6 +7,14 @@ every batch to the K-Radar exporter, then times the forward with CUDA
 events (10 warm-up runs, then ``repetitions`` timed ones) and counts the
 FLOPs of one forward and the parameters (``evaluate_complexity``). Results
 go to ``results.json`` in the log directory instead of TensorBoard.
+
+Data parallel (several ranks, dpft_tpu_torch/parallel): each rank runs the
+forward on its rows of every batch (the loader's shard), and the outputs
+and targets are gathered to rank 0, which alone runs the metrics and the
+exporter and writes ``results.json``: the same files as one process. The
+latency is that of the DP forward (the slowest rank's); the FLOPs are
+counted on rank 0 for one forward of the first node batch (every rank's
+rows of it), as one process counts them.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from dpft_tpu_torch import parallel
 from dpft_tpu_torch.evaluation.exporters import build as build_exporter
 from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
@@ -109,7 +118,8 @@ class CentralizedEvaluator:
                            data_loader: Iterable,
                            dst: Optional[str] = None) -> Dict[str, float]:
         """Runs the forward over the loader, exports every batch and
-        returns the metrics averaged over batches."""
+        returns the metrics averaged over batches (on rank 0; the other
+        ranks of a data-parallel run return nothing)."""
         device = next(model.parameters()).device
         sample_step = 0
         sums: Dict[str, float] = {}
@@ -117,6 +127,13 @@ class CentralizedEvaluator:
         with torch.inference_mode():
             for batch, targets in data_loader:
                 out = model(to_device(batch, device))
+                if parallel.world_size() > 1:
+                    out = parallel.gather_rows(out)
+                    targets = {k: v.cpu().numpy() for k, v in
+                               parallel.gather_rows(to_device(
+                                   targets, device)).items()}
+                    if not parallel.is_main():
+                        continue
                 if self.metric is not None:
                     metrics = self.metric(out, to_device(targets, device))
                     for k, v in metrics.items():
@@ -128,7 +145,7 @@ class CentralizedEvaluator:
                 if "sample_mask" in targets:  # loader pad_last policy
                     sample_step += int(np.sum(targets["sample_mask"]))
                 else:
-                    sample_step += next(iter(batch.values())).shape[0]
+                    sample_step += next(iter(out.values())).shape[0]
         return {k: v / max(n, 1) for k, v in sums.items()}
 
     def evaluate_inference_time(self, model: torch.nn.Module,
@@ -153,16 +170,25 @@ class CentralizedEvaluator:
                 torch.cuda.synchronize(device)
                 if i >= self.warmup:
                     times.append(start.elapsed_time(end))
-        return {"Inference_time_mean_ms": float(np.mean(times)),
-                "Inference_time_std_ms": float(np.std(times))}
+        # Data parallel: the slowest rank's.
+        stats = parallel.gather_rows({"t": torch.tensor(
+            [[np.mean(times), np.std(times)]], dtype=torch.float64,
+            device=device)})["t"]
+        mean, std = stats[stats[:, 0].argmax()].tolist()
+        return {"Inference_time_mean_ms": mean, "Inference_time_std_ms": std}
 
     def evaluate_complexity(self, model: torch.nn.Module,
                             data_loader: Iterable) -> Dict[str, float]:
         """FLOPs of one forward of the first batch (:func:`forward_flops`)
-        and the number of parameters."""
+        and the number of parameters. Data parallel, every rank's rows of
+        that batch are gathered and counted on rank 0; the other ranks
+        return nothing."""
         device = next(model.parameters()).device
         batch, _ = next(iter(data_loader))
-        return {"FLOPS": float(forward_flops(model, to_device(batch, device))),
+        batch = parallel.gather_rows(to_device(batch, device))
+        if not parallel.is_main():
+            return {}
+        return {"FLOPS": float(forward_flops(model, batch)),
                 "Parameters": float(parameter_count(model))}
 
     def evaluate(self, checkpoint: str, data_loader: Iterable,
@@ -175,7 +201,8 @@ class CentralizedEvaluator:
         results = {**metrics,
                    **self.evaluate_inference_time(model, data_loader),
                    **self.evaluate_complexity(model, data_loader)}
-        if self.logging is not None and dst is not None:
+        if self.logging is not None and dst is not None and \
+                parallel.is_main():
             os.makedirs(dst, exist_ok=True)
             with open(osp.join(dst, "results.json"), "w") as f:
                 json.dump(results, f, indent=1)

@@ -20,18 +20,36 @@ schedule state go beside it (:func:`optimizer_state_path`). Scalars go to
 Dropout draws from torch's generator, seeded at the start of every epoch
 from ``computing.seed`` and the epoch, so a resumed run draws what the
 uninterrupted run would have.
+
+Under data parallelism (a ``torch.distributed`` group, dpft_tpu_torch/
+parallel) each rank runs its rows of the global batch: its BatchNorm
+layers become ``GlobalBatchNorm2d`` and the model is wrapped in
+``DistributedDataParallel``, which averages the gradients over ranks. The
+step's scalars are the global batch's means (each rank's means weighted by
+its real samples, ``sample_mask``), and each rank's loss is scaled by its
+share of those samples times the world size, so that the average is the
+gradient of the global batch's loss; the update gate decides on the global
+loss, so every rank runs the backward or none does. Under
+``accumulate_steps`` the gradients are synchronized on the micro-batch
+that completes an update only (``no_sync`` before it). Only rank 0 writes
+checkpoints, optimizer state and scalars; the saved state_dict is the
+unwrapped model's, the single-process key space. Each rank draws its own
+dropout masks from the same seed, for other rows: a DP step equals the
+single-process step on the same global batch only without dropout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
 import os.path as osp
-from typing import Any, Callable, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
+from dpft_tpu_torch import parallel
 from dpft_tpu_torch.evaluation.evaluator import to_device
 from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
@@ -121,13 +139,38 @@ class CentralizedTrainer:
     def __call__(self, *args, **kwargs):
         return self.train(*args, **kwargs)
 
-    def _scalars(self, total, losses, metrics) -> Dict[str, float]:
+    def _scalars(self, total, losses, metrics, targets
+                 ) -> Tuple[Dict[str, float], float]:
+        """The step's scalars and the factor of this rank's loss in the
+        global one. On one rank: the batch's own and 1. Under data
+        parallelism: the global batch's means (a 'sum' reduction adds
+        over ranks), and the rank's share of the global batch's real
+        samples times the world size (the world size under 'sum')."""
         names = ["loss", *(f"loss_{k}" for k in losses), *metrics]
         values = torch.stack([total.detach(), *(v.detach() for v in
                                                 losses.values()),
                               *(torch.as_tensor(v, device=total.device)
-                                for v in metrics.values())]).tolist()
-        return dict(zip(names, values))
+                                for v in metrics.values())])
+        if parallel.world_size() == 1:
+            return dict(zip(names, values.tolist())), 1.0
+        mask = targets.get("sample_mask")
+        count = (mask.sum() if mask is not None
+                 else torch.tensor(targets["gt_mask"].shape[0],
+                                   device=total.device))
+        loss_mean = self.loss_fn.reduction == "mean"
+        metric_mean = bool(metrics) and self.metric.reduction == "mean"
+        mean = torch.tensor([loss_mean] * (1 + len(losses))
+                            + [metric_mean] * len(metrics),
+                            device=total.device)
+        count = count.double()
+        weights = torch.where(mean, count, 1.0)
+        sums = parallel.all_sum(torch.cat([values * weights,
+                                           count.reshape(1)]))
+        total_count = sums[-1].clamp_min(1.0)
+        values = sums[:-1] / torch.where(mean, total_count, 1.0)
+        share = (count / total_count).item() if loss_mean else 1.0
+        return (dict(zip(names, values.tolist())),
+                share * parallel.world_size())
 
     def train_step(self, model: torch.nn.Module,
                    batch: Dict[str, torch.Tensor],
@@ -135,16 +178,18 @@ class CentralizedTrainer:
                    scale: float = 1.0) -> Dict[str, float]:
         """Forward, matching, loss and (if the loss is above 0) the
         backward of ``loss * scale``; gradients add up in ``.grad``.
-        Returns the step's scalars."""
+        Returns the step's scalars. Under data parallelism ``model`` is
+        the ``DistributedDataParallel`` wrapper, and loss and gate are the
+        global batch's."""
         model.train()
         out = model(batch)
         indices = (self.loss_fn.match(out, targets)
                    if self.loss_fn.use_assigner else None)
         total, losses = self.loss_fn(out, targets, indices=indices)
         metrics = self.metric(out, targets) if self.metric else {}
-        scalars = self._scalars(total, losses, metrics)
+        scalars, share = self._scalars(total, losses, metrics, targets)
         if scalars["loss"] > 0:  # the reference's update gate
-            (total * scale).backward()
+            (total * (scale * share)).backward()
         return scalars
 
     @torch.no_grad()
@@ -156,7 +201,7 @@ class CentralizedTrainer:
         out = model(batch)
         total, losses = self.loss_fn(out, targets)
         metrics = self.metric(out, targets) if self.metric else {}
-        return self._scalars(total, losses, metrics)
+        return self._scalars(total, losses, metrics, targets)[0]
 
     def train(self, model: torch.nn.Module, train_loader: Iterable,
               val_loader: Optional[Iterable] = None, start_epoch: int = 0,
@@ -182,8 +227,11 @@ class CentralizedTrainer:
             scheduler.load_state_dict(optimizer_state["scheduler"])
         optimizer.zero_grad(set_to_none=True)
 
+        net = parallel.distribute(model)
+        main = parallel.is_main()
+
         log = _Scalars(None)
-        if dst is not None:
+        if dst is not None and main:
             os.makedirs(osp.join(dst, timestamp, "checkpoints"),
                         exist_ok=True)
             if self.logging is not None:
@@ -197,9 +245,13 @@ class CentralizedTrainer:
             rows = []
             for i, (batch, targets) in enumerate(train_loader):
                 lr = optimizer.param_groups[0]["lr"]  # of this step's update
-                scalars = self.train_step(model, to_device(batch, device),
-                                          to_device(targets, device),
-                                          scale=1.0 / k)
+                # Gradients are averaged over ranks on the micro-batch that
+                # completes an update only.
+                sync = net is model or accepted == k - 1
+                with contextlib.nullcontext() if sync else net.no_sync():
+                    scalars = self.train_step(net, to_device(batch, device),
+                                              to_device(targets, device),
+                                              scale=1.0 / k)
                 if scalars["loss"] > 0:
                     accepted += 1
                     if accepted == k:
@@ -227,12 +279,14 @@ class CentralizedTrainer:
                         log.write("val", "epoch", epoch, result)
 
             if dst is not None:
-                path = checkpoint_path(dst, timestamp, epoch)
-                registry.save(model, self.config, path)
-                if self.config.get("train", {}).get("save_optimizer"):
-                    torch.save({"optimizer": optimizer.state_dict(),
-                                "scheduler": scheduler.state_dict()},
-                               optimizer_state_path(path))
+                if main:
+                    path = checkpoint_path(dst, timestamp, epoch)
+                    registry.save(model, self.config, path)
+                    if self.config.get("train", {}).get("save_optimizer"):
+                        torch.save({"optimizer": optimizer.state_dict(),
+                                    "scheduler": scheduler.state_dict()},
+                                   optimizer_state_path(path))
+                parallel.barrier()
         model.eval()
         return {"timestamp": timestamp, "history": history,
                 "result": result, "optimizer": optimizer}
