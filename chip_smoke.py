@@ -77,7 +77,7 @@ not 0:
    the model from seed 0 without a process group is the reference. In a
    one-rank NCCL group joined through ``parallel.init_distributed``'s
    torchrun route, the step through ``parallel.distribute`` (global
-   BatchNorm, DistributedDataParallel) equals it (loss 1e-4 relative,
+   BatchNorm, FSDP2 on the (1, 1) mesh) equals it (loss 1e-4 relative,
    gradients and BatchNorm running statistics 1e-3 of their largest) with
    12 ``msda_fwd`` and 12 ``msda_bwd`` launches. Then two spawned
    processes share the card in a gloo group (NCCL refuses two ranks on
@@ -94,8 +94,9 @@ not 0:
    + 12 in the step. Float64 probes without a group print where the
    float32 spread comes from (perturbed inputs, locations moved by an
    ulp). Printed: ms per step (CUDA events, 5 after 2) without a group,
-   under DDP alone at world size 1, under DDP with the global BatchNorm
-   at world size 1, and on each gloo rank, with the peak memory of each.
+   under torch's DDP alone at world size 1 (for comparison; the port does
+   not use it), through ``distribute`` at world size 1, and on each gloo
+   rank, with the peak memory of each.
 10. Matmul-form kernels vs plain: ``msda_mm_fwd`` against the plain level
    op ``sample_level_fused_plain`` and ``msda_mm_bwd`` against
    torch.autograd.grad through it, in float32, at border cases (D = 2, 3,
@@ -210,12 +211,54 @@ not 0:
    B=1 and B=4 and train step ms by CUDA events, peak memory, build
    seconds. Every phase from export_mm on prints its seconds, and the
    script its total.
+17. Configs (after phase 16): the four other shipped configs (the camera
+   alone, both radar views, the BEV plane alone, the front plane alone) at
+   full width from seed 0, each held as phase 16 holds a family: exactly
+   ``m_views x i_iter`` ``msda_fwd`` launches per forward and ``msda_bwd``
+   per step. In phase 15, on the tree it wrote: ``prepare_device:
+   "native"`` on the raw tree (the same files, the planes against the
+   card's) and ``dpft_tpu_torch.train.main`` for one epoch and
+   ``evaluate.main`` with config/kradar_radar_bev.json: at least one step
+   with a loss above 0, at least one labelled object in the test split,
+   and an mAP of 1.0 only where every test sample has fewer than two
+   classes among its targets and predicted labels (the metric's rule).
+18. Remat (after phase 9b): the flagship B=4 f32 step with
+   ``computing.remat`` against without (gradients 1e-3 of their largest,
+   beside the spread of two steps without; every buffer bit-equal; the
+   same launches); ms per step and peak memory with and without at B=4
+   and B=16. Phase 7 also runs its two backward passes with
+   ``cudnn.deterministic`` on, and times the step both ways.
+19. Tensor parallel (after phase 9b): in a one-rank NCCL group joined
+   through ``init_distributed`` (``computing.model_parallel`` 1, a (1, 1)
+   mesh), the flagship through ``parallel.distribute`` (FSDP2): its B=4
+   f32 step against the step without a group (phase 7's bounds), 12 + 12
+   launches, ms per step; ``CentralizedTrainer`` in float64 on the plain
+   core with deterministic algorithms, SGD with momentum and
+   ``accumulate_steps`` 2, one epoch with ``save_optimizer`` and one
+   resumed from it, every tensor of its checkpoints and optimizer states
+   within ``TP_FIT_TOL`` of the run without a group, the last checkpoint
+   loading in one process with the same bits (after the cast to the
+   config's float32 model). Then two gloo ranks sharing the card on a (1,
+   2) mesh (``parallel.make_mesh``): their float64 step on the plain core
+   equals the float64 step without a group within 1e-9, with each rank's
+   bytes of parameters and moments and its peak memory.
+20. Checkpoint writer: the flagship saved twice by
+   ``registry.CheckpointSaver``: ms the epoch waits (the copy to the host)
+   and ms of the whole commit, the size, the bits read back.
+21. Host radar reduction (before phase 15): ``prepare_device: "native"``'s
+   kernel (csrc/radar_reduce_host.cc, g++) on a full K-Radar cube against
+   the CUDA kernels' planes (phase 14's tolerance; the lookup channel may
+   name another doppler bin only at a tie: where the two bins' maxima of
+   10 log10, taken in float64 from the cube, lie within ``TIE_ULPS``
+   float32 ulps; each such gap is printed), ms per cube on the host with
+   its CPU's name.
 
 The kernel report gives, for every kernel, its launches on every main
 path (serve, export, train, eval_dp and train_dp (rank 0's: 9 eval
-forwards, one step), serve_mm,
+forwards, one step), train_tp, train_remat, serve_mm,
 export_mm, train_mm, serve_<family> and train_<family> of the three
-families, prepare), its error against the plain version, its time, the plain version's,
+families and of the four configs, prepare), its error against the plain
+version, its time, the plain version's,
 and ``bound_ms``: the least time the card could take, the larger of the
 bytes the function must move (every input read once, every output written
 once; for MSDA only the 32-byte sectors of the value map that this run's
@@ -1398,11 +1441,33 @@ def phase_step_backward_twice(config, model):
     between the two passes, by kind of layer, and which of the MSDA layers
     of the last decoder iteration (``value_proj``, ``sampling_offsets``,
     ``attention_weights``, ``output_proj``) do. Reported, not held: the
-    kernels' own bits are held in phase 6."""
+    kernels' own bits are held in phase 6. Then the same with
+    ``torch.backends.cudnn.deterministic`` on (cuDNN's share of the
+    spread), and the step's ms (CUDA events, no update) with the flag off
+    and on; the flag is set back off."""
     from dpft_tpu_torch.training import CentralizedTrainer
 
     trainer = CentralizedTrainer.from_config(config)
     batch, targets = _cuda_batch(config, seed=20)
+    try:
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            _backward_twice(trainer, model, batch, targets,
+                            f"cudnn.deterministic {deterministic}")
+
+            def step():
+                trainer.train_step(model, batch, targets)
+                model.zero_grad(set_to_none=True)
+
+            ms = _cuda_ms(step, reps=3, warmup=1)
+            print(f"[train] B={B_TRAIN} f32 step (forward, matching, loss, "
+                  f"backward; no update) with cudnn.deterministic "
+                  f"{deterministic}: {ms:.3f} ms (CUDA events, 3 after 1)")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _backward_twice(trainer, model, batch, targets, label):
     model.train()
     torch.manual_seed(3)
     out = model(batch)
@@ -1430,8 +1495,10 @@ def phase_step_backward_twice(config, model):
         group = re.sub(r"\.(\d+)\.", ".*.", group.rsplit(".", 1)[0])
         groups.setdefault(group, []).append(name)
     moved = [k for k in held if k in differ]
-    print(f"[train] B={B_TRAIN} f32 step, backward twice on one forward: "
-          f"{len(differ)} of {len(names)} parameter gradients differ; of the "
+    worst = max(differ.values(), default=0.0)
+    print(f"[train] B={B_TRAIN} f32 step, backward twice on one forward, "
+          f"{label}: {len(differ)} of {len(names)} parameter gradients "
+          f"differ (worst {worst:.3e} of its max); of the "
           f"{len(held)} MSDA parameters of {last}, {len(moved)} differ "
           f"{moved}")
     for group, members in sorted(groups.items()):
@@ -1580,13 +1647,13 @@ def _bn_stats(model):
 
 
 def _dp_parity_step(trainer, net, model, batch, targets):
-    """One train step from cleared gradients: (loss, gradients, BatchNorm
-    running statistics after it)."""
+    """One train step from cleared gradients: (loss, gradients gathered
+    whole (``_gather_whole``), BatchNorm running statistics after it)."""
     model.zero_grad(set_to_none=True)
     torch.manual_seed(3)
     loss = trainer.train_step(net, batch, targets)["loss"]
-    grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()
-             if p.grad is not None}
+    grads = {k: _gather_whole(p.grad.detach()).clone()
+             for k, p in model.named_parameters() if p.grad is not None}
     model.zero_grad(set_to_none=True)
     return loss, grads, _bn_stats(model)
 
@@ -1762,7 +1829,8 @@ def _dp_rank(rank, world, store, tmp):
     """One of ``world`` processes on the one card, in a gloo group at the
     file ``store``, on rows ``rank * 4 / world`` of the B=4 batch: the
     evaluator on those rows (float32, the kernels) and its launches; then
-    through ``parallel.distribute`` (global BatchNorm, DDP) one float32
+    through ``parallel.distribute`` (global BatchNorm, FSDP2 on the (2, 1)
+    mesh that it lays the group out as) one float32
     step with the kernels and its launches, ``msda_fwd`` and ``msda_bwd``
     held against the plain version on each MSDA call's own inputs and
     output gradient of that step, its step times and peak memory, and one
@@ -1897,9 +1965,10 @@ def phase_data_parallel(config, view_shapes):
 
     (1) A one-rank NCCL group joined through ``init_distributed``'s
     torchrun route: the float32 step through ``parallel.distribute``
-    equals the reference (loss 1e-4 relative, gradients and running
-    statistics 1e-3 of their largest); ms per step without a group, under
-    DDP alone, under DDP with the global BatchNorm.
+    (FSDP2 on the (1, 1) mesh, global BatchNorm) equals the reference
+    (loss 1e-4 relative, gradients and running statistics 1e-3 of their
+    largest); ms per step without a group, under torch's DDP alone (which
+    the port does not use; for comparison) and through ``distribute``.
 
     (2) ``DP_RANKS`` processes on the one card in a gloo group (NCCL
     refuses two ranks on one card), two rows each. The evaluator on the
@@ -1925,8 +1994,6 @@ def phase_data_parallel(config, view_shapes):
 
     Returns rank 0's launches in its float32 step and in its evaluation.
     """
-    import multiprocessing
-
     import torch.distributed as dist
     from torch.nn.parallel import DistributedDataParallel
 
@@ -1993,10 +2060,11 @@ def phase_data_parallel(config, view_shapes):
             raise AssertionError(f"group {dist.get_backend()} of "
                                  f"{dist.get_world_size()}")
         model = _dp_model(config)
+        # torch's DDP, which the port does not use, for comparison.
         net = DistributedDataParallel(model, device_ids=[0],
                                       broadcast_buffers=False,
                                       find_unused_parameters=True)
-        times["DDP alone, NCCL, world 1"] = _timed_steps(
+        times["torch's DDP alone, NCCL, world 1"] = _timed_steps(
             trainer, net, model, batch, targets)
         del net, model
         model = _dp_model(config)
@@ -2007,10 +2075,11 @@ def phase_data_parallel(config, view_shapes):
         if launches != expected:
             raise AssertionError(f"the NCCL step launched {launches}, "
                                  f"expected {expected}")
-        _compare_steps("DDP + global BatchNorm, NCCL world 1", "no group",
-                       step[:2], ref[:2])
+        _compare_steps("distribute (FSDP2 + global BatchNorm), NCCL world 1",
+                       "no group", step[:2], ref[:2])
         _compare_stats("NCCL world 1 vs no group", step[2], ref[2])
-        times["DDP + global BatchNorm, NCCL, world 1"] = _timed_steps(
+        times["distribute (FSDP2 + global BatchNorm), NCCL, world 1"] = \
+            _timed_steps(
             trainer, net, model, batch, targets)
         del net, model
     finally:
@@ -2022,22 +2091,8 @@ def phase_data_parallel(config, view_shapes):
                 os.environ[k] = v
     torch.cuda.empty_cache()
 
-    ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_dp_rank,
-                             args=(r, DP_RANKS, os.path.join(tmp, "store"),
-                                   tmp)) for r in range(DP_RANKS)]
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(600)
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-        codes = [p.exitcode for p in procs]
+        codes = _spawn_ranks(_dp_rank, DP_RANKS, tmp, "store")
         if codes != [0] * DP_RANKS:
             raise AssertionError(f"the gloo ranks exited with {codes}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
@@ -2598,6 +2653,19 @@ def phase_families(config):
     forward at B=1 and B=4 f32, train step at B=4 f32; peak memory; build
     seconds. Returns the launches of the forward (``serve_<family>``) and
     of the step (``train_<family>``)."""
+    paths = {}
+    for label, backbone, learnable in FAMILIES:
+        fconfig = family_config(config, backbone, learnable=learnable)
+        desc = backbone + (" + learnable querent" if learnable else "")
+        paths[f"serve_{label}"], paths[f"train_{label}"] = _hold_model(
+            "families", label, fconfig, desc)
+    return paths
+
+
+def _hold_model(tag, label, fconfig, desc):
+    """One model of ``fconfig`` at production shapes from seed 0, held as
+    ``phase_families`` describes; returns the launches of its B=1 forward
+    and of its B=4 step."""
     import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
     from dpft_tpu_torch.evaluation.evaluator import forward_flops
     from dpft_tpu_torch.models import registry
@@ -2605,117 +2673,112 @@ def phase_families(config):
     from dpft_tpu_torch.training import CentralizedTrainer
     from dpft_tpu_torch.utils.example import example_batch
 
-    paths = {}
-    for label, backbone, learnable in FAMILIES:
-        t0 = time.perf_counter()
-        fconfig = family_config(config, backbone, learnable=learnable)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        model = registry.build(fconfig["model"]["name"], fconfig,
-                               device="cuda", seed=0)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        batches = {B: _to_cuda(example_batch(fconfig, B=B, cam_hw=(512, 910)))
-                   for B in (1, 4)}
-        with torch.inference_mode():
-            views = model.features(batches[1])
-        view_shapes = dict(zip(model.inputs, (shapes for _, shapes in views)))
-        calls = fconfig["model"]["fuser"]["i_iter"] * len(view_shapes)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = registry.build(fconfig["model"]["name"], fconfig,
+                           device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batches = {B: _to_cuda(example_batch(fconfig, B=B, cam_hw=(512, 910)))
+               for B in (1, 4)}
+    with torch.inference_mode():
+        views = model.features(batches[1])
+    view_shapes = dict(zip(model.inputs, (shapes for _, shapes in views)))
+    calls = fconfig["model"]["fuser"]["i_iter"] * len(view_shapes)
 
-        # B=1 f32 forward: kernels against the plain core.
-        with torch.inference_mode():
-            _reset_launches()
-            out = model(batches[1])
-            fwd_launches = _read_launches()
-            msda_layer.ms_deform_attn_core = _plain_core
-            try:
-                ref = model(batches[1])
-            finally:
-                msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
-        expected = _expected_launches(fconfig, view_shapes, 1, 0)
-        if fwd_launches != expected or fwd_launches["msda_fwd"] != calls:
-            raise AssertionError(f"{backbone} forward launched "
-                                 f"{fwd_launches}, expected {expected}")
-        errs = []
-        for key, width in (("class", 2), ("center", 3), ("size", 3),
-                           ("angle", 2)):
-            got, want = out[key], ref[key]
-            scale = want.abs().max().item()
-            err = (got - want).abs().max().item()
-            if tuple(got.shape) != (1, N_QUERIES, width) or \
-                    not torch.isfinite(got).all() or \
-                    not err <= TOL[torch.float32] * scale:
-                raise AssertionError(f"{backbone} {key}: shape "
-                                     f"{tuple(got.shape)}, max abs err "
-                                     f"{err:.3e} of {scale}")
-            errs.append(err / max(scale, 1e-30))
-
-        # B=1 bf16 forward: finite, its distance from f32 printed.
-        model.compute_dtype = torch.bfloat16
-        with torch.inference_mode():
-            low = model(batches[1])
-        model.compute_dtype = torch.float32
-        if not all(torch.isfinite(v).all() for v in low.values()):
-            raise AssertionError(f"{backbone}: non-finite bf16 outputs")
-        bf16_err = max(((low[k].float() - out[k]).abs().max()
-                        / out[k].abs().max().clamp_min(1e-30)).item()
-                       for k in out)
-
-        # The FLOP count against the reckoning by hooks.
-        flops = forward_flops(model, batches[1])
-        reckoned = reckon_flops(model, batches[1])
-        if flops != reckoned:
-            raise AssertionError(f"{backbone}: FLOPs {flops}, reckoned "
-                                 f"{reckoned}")
-
-        # One B=4 f32 train step against the plain core's.
-        trainer = CentralizedTrainer.from_config(fconfig)
-        batch, targets = _cuda_batch(fconfig, seed=20)
+    # B=1 f32 forward: kernels against the plain core.
+    with torch.inference_mode():
         _reset_launches()
-        step = _step_loss_and_grads(trainer, model, batch, targets)
-        step_launches = _read_launches()
-        expected = _expected_launches(fconfig, view_shapes, 1, 1)
-        if step_launches != expected or step_launches["msda_bwd"] != calls:
-            raise AssertionError(f"{backbone} step launched "
-                                 f"{step_launches}, expected {expected}")
+        out = model(batches[1])
+        fwd_launches = _read_launches()
         msda_layer.ms_deform_attn_core = _plain_core
         try:
-            ref_step = _step_loss_and_grads(trainer, model, batch, targets)
+            ref = model(batches[1])
         finally:
             msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
-        _compare_steps(f"{label} kernel model", "plain-core model", step,
-                       ref_step)
+    expected = _expected_launches(fconfig, view_shapes, 1, 0)
+    if fwd_launches != expected or fwd_launches["msda_fwd"] != calls:
+        raise AssertionError(f"{desc} forward launched "
+                             f"{fwd_launches}, expected {expected}")
+    errs = []
+    for key, width in (("class", 2), ("center", 3), ("size", 3),
+                       ("angle", 2)):
+        got, want = out[key], ref[key]
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if tuple(got.shape) != (1, N_QUERIES, width) or \
+                not torch.isfinite(got).all() or \
+                not err <= TOL[torch.float32] * scale:
+            raise AssertionError(f"{desc} {key}: shape "
+                                 f"{tuple(got.shape)}, max abs err "
+                                 f"{err:.3e} of {scale}")
+        errs.append(err / max(scale, 1e-30))
 
-        # Times.
-        model.eval()
-        with torch.inference_mode():
-            fwd_ms = {B: _cuda_ms(lambda: model(batch_), reps=10, warmup=3)
-                      for B, batch_ in batches.items()}
-        optimizer = trainer.optimizer_factory(model.parameters())
+    # B=1 bf16 forward: finite, its distance from f32 printed.
+    model.compute_dtype = torch.bfloat16
+    with torch.inference_mode():
+        low = model(batches[1])
+    model.compute_dtype = torch.float32
+    if not all(torch.isfinite(v).all() for v in low.values()):
+        raise AssertionError(f"{desc}: non-finite bf16 outputs")
+    bf16_err = max(((low[k].float() - out[k]).abs().max()
+                    / out[k].abs().max().clamp_min(1e-30)).item()
+                   for k in out)
 
-        def train_step():
-            trainer.train_step(model, batch, targets)
-            optimizer.step()
-            optimizer.zero_grad(set_to_none=True)
+    # The FLOP count against the reckoning by hooks.
+    flops = forward_flops(model, batches[1])
+    reckoned = reckon_flops(model, batches[1])
+    if flops != reckoned:
+        raise AssertionError(f"{desc}: FLOPs {flops}, reckoned "
+                             f"{reckoned}")
 
-        step_ms = _cuda_ms(train_step, reps=5, warmup=2)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        params = sum(p.numel() for p in model.parameters())
-        print(f"[families] {backbone}{' + learnable querent' if learnable else ''}"
-              f" ({params:,} parameters, built in {build_s:.1f} s): B=1 f32 "
-              f"kernel vs plain core worst {max(errs):.3e} of an output's "
-              f"largest element (tol {TOL[torch.float32]}), bf16 vs f32 "
-              f"{bf16_err:.3e}; FLOPs per B=1 forward {flops:,} = reckoned; "
-              f"forward {fwd_ms[1]:.3f} ms at B=1, {fwd_ms[4]:.3f} ms at "
-              f"B=4 f32, train step B={B_TRAIN} f32 {step_ms:.3f} ms (CUDA "
-              f"events); peak memory {peak:.3f} GiB; launches: forward "
-              f"{fwd_launches}, step {step_launches}; "
-              f"{time.perf_counter() - t0:.1f} s")
-        paths[f"serve_{label}"] = fwd_launches
-        paths[f"train_{label}"] = step_launches
-        del model, trainer, optimizer
-        torch.cuda.empty_cache()
-    return paths
+    # One B=4 f32 train step against the plain core's.
+    trainer = CentralizedTrainer.from_config(fconfig)
+    batch, targets = _cuda_batch(fconfig, seed=20)
+    _reset_launches()
+    step = _step_loss_and_grads(trainer, model, batch, targets)
+    step_launches = _read_launches()
+    expected = _expected_launches(fconfig, view_shapes, 1, 1)
+    if step_launches != expected or step_launches["msda_bwd"] != calls:
+        raise AssertionError(f"{desc} step launched "
+                             f"{step_launches}, expected {expected}")
+    msda_layer.ms_deform_attn_core = _plain_core
+    try:
+        ref_step = _step_loss_and_grads(trainer, model, batch, targets)
+    finally:
+        msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+    _compare_steps(f"{label} kernel model", "plain-core model", step,
+                   ref_step)
+
+    # Times.
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = {B: _cuda_ms(lambda: model(batch_), reps=10, warmup=3)
+                  for B, batch_ in batches.items()}
+    optimizer = trainer.optimizer_factory(model.parameters())
+
+    def train_step():
+        trainer.train_step(model, batch, targets)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+
+    step_ms = _cuda_ms(train_step, reps=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = sum(p.numel() for p in model.parameters())
+    print(f"[{tag}] {desc}"
+          f" ({params:,} parameters, built in {build_s:.1f} s): B=1 f32 "
+          f"kernel vs plain core worst {max(errs):.3e} of an output's "
+          f"largest element (tol {TOL[torch.float32]}), bf16 vs f32 "
+          f"{bf16_err:.3e}; FLOPs per B=1 forward {flops:,} = reckoned; "
+          f"forward {fwd_ms[1]:.3f} ms at B=1, {fwd_ms[4]:.3f} ms at "
+          f"B=4 f32, train step B={B_TRAIN} f32 {step_ms:.3f} ms (CUDA "
+          f"events); peak memory {peak:.3f} GiB; launches: forward "
+          f"{fwd_launches}, step {step_launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, trainer, optimizer
+    torch.cuda.empty_cache()
+    return fwd_launches, step_launches
 
 
 def phase_mm_model(config, model):
@@ -3383,6 +3446,8 @@ def phase_prepare(config_path, config, model):
               f"output's largest element of the eager forward (tol "
               f"{TOL[torch.float32]}), ok")
         phase_reference_ckpt(root, dst, config, model)
+        _timed("prepare native, BEV train and evaluate", phase_tree_clis,
+               root, src, dst, config)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -3483,6 +3548,766 @@ def phase_reference_ckpt(root, dst, config, model):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+CONFIG_ABLATIONS = (("camera_mono", "kradar_camera_mono.json"),
+                    ("radar", "kradar_radar.json"),
+                    ("radar_bev", "kradar_radar_bev.json"),
+                    ("radar_front", "kradar_radar_front.json"))
+
+
+def phase_configs():
+    """The four other shipped configs (the modality ablations: the camera
+    alone, both radar views, the BEV plane alone, the front plane alone;
+    the fuser at ``m_views`` 1 and 2) at full width, seed 0, each held as
+    ``phase_families`` holds a family (``_hold_model``): exactly ``m_views
+    x i_iter`` ``msda_fwd`` launches per forward and ``msda_bwd`` launches
+    per step. Returns the launches of each forward (``serve_<config>``)
+    and step (``train_<config>``)."""
+    paths = {}
+    for label, name in CONFIG_ABLATIONS:
+        with open(os.path.join(ROOT, "config", name)) as f:
+            cconfig = json.load(f)
+        views = len(cconfig["model"]["inputs"])
+        if cconfig["model"]["fuser"]["m_views"] != views:
+            raise AssertionError(f"{name}: m_views "
+                                 f"{cconfig['model']['fuser']['m_views']}")
+        paths[f"serve_{label}"], paths[f"train_{label}"] = _hold_model(
+            "configs", label, cconfig, f"{name} ({views} view"
+            f"{'s' if views > 1 else ''})")
+    return paths
+
+
+def phase_remat(config):
+    """``computing.remat`` on the flagship: the B=4 f32 step with the
+    backbones recomputed in the backward against the step without, from
+    the same weights, batch and dropout seed. Held: the loss (1e-4
+    relative) and every gradient (1e-3 of its largest; printed beside the
+    spread of two steps without remat, cuDNN's), every BatchNorm buffer
+    bit for bit (the recompute must not update the running statistics
+    again) and the same kernel launches. Printed: ms per step (CUDA
+    events) and peak memory with and without, at B=4 and B=16. Returns
+    the step's launches with remat (``train_remat``)."""
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.training import CentralizedTrainer
+    from dpft_tpu_torch.utils.example import example_batch, example_targets
+
+    trainer = CentralizedTrainer.from_config(config)
+    batch, targets = _cuda_batch(config, seed=20)
+    model = registry.build(config["model"]["name"], config, device="cuda",
+                           seed=0)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for remat in (False, False, True):
+        model.load_state_dict(state)
+        model.remat = remat
+        _reset_launches()
+        step = _step_loss_and_grads(trainer, model, batch, targets)
+        runs.append((step, _read_launches(),
+                     {k: b.clone() for k, b in model.named_buffers()}))
+    (plain, launches, buffers), (again, _, _), (remat_step, remat_launches,
+                                                remat_buffers) = runs
+    spread = max(((again[1][k] - g).abs().max() / g.abs().max().clamp_min(
+        1e-30)).item() for k, g in plain[1].items())
+    _compare_steps("remat", "no remat", remat_step, plain)
+    differ = [k for k, b in buffers.items()
+              if not torch.equal(b, remat_buffers[k])]
+    if differ:
+        raise AssertionError(f"remat changed the buffers {differ[:5]}")
+    if remat_launches != launches:
+        raise AssertionError(f"remat launched {remat_launches}, without "
+                             f"{launches}")
+    print(f"[remat] the step without remat twice: worst gradient "
+          f"{spread:.3e} of its max apart (cuDNN); {len(buffers)} buffers "
+          f"bit-equal with and without remat; launches {launches} both ok")
+    for B in (B_TRAIN, 16):
+        big = (_to_cuda(example_batch(config, B=B, cam_hw=(512, 910),
+                                      seed=21)),
+               _to_cuda(example_targets(config, B=B, seed=21)))
+        for remat in (False, True):
+            model.load_state_dict(state)
+            model.remat = remat
+            ms, std, peak, above = _timed_steps(trainer, model, model, *big,
+                                                steps=3, warmup=1)
+            print(f"[remat] B={B} f32 step, remat {remat}: {ms:.3f} ms "
+                  f"(std {std:.3f}, 3 steps by CUDA events after 1); peak "
+                  f"memory {peak:.3f} GiB, {above:.3f} GiB above what the "
+                  f"process held before")
+        del big
+    del model
+    torch.cuda.empty_cache()
+    return {"train_remat": remat_launches}
+
+
+def _gather_whole(t):
+    """A tensor of a model that ``parallel.distribute`` sharded (a
+    DTensor) gathered whole, on its device; any other tensor as it is.
+    Every rank calls it in the same order. A dim cut over more than one
+    rank is gathered through the host by the list all-gather of its mesh
+    dim's group (on gloo ranks, ``DTensor.full_tensor``'s functional
+    all-gather ends the process with a segmentation fault, torch 2.11 on
+    an H100); over one rank the local tensor is the whole."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    whole = t.to_local()
+    for i, placement in enumerate(t.placements):
+        world = t.device_mesh.size(i)
+        if not placement.is_shard() or world == 1:
+            continue
+        d, n = placement.dim, t.shape[placement.dim]
+        local = whole.detach().cpu()
+        chunk = -(-n // world)
+        local = torch.nn.functional.pad(
+            local, [0, 0] * (local.dim() - d - 1) +
+            [0, chunk - local.shape[d]])
+        parts = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(parts, local.contiguous(),
+                        group=t.device_mesh.get_group(i))
+        whole = torch.cat(parts, d).narrow(d, 0, n).to(t.device)
+    return whole
+
+
+def _local_bytes(tensors):
+    from torch.distributed.tensor import DTensor
+
+    return sum((t.to_local() if isinstance(t, DTensor) else t).numel()
+               * t.element_size() for t in tensors)
+
+
+def _spawn_ranks(target, world, tmp, store):
+    """Runs ``target(rank, world, tmp/store, tmp)`` in ``world`` spawned
+    processes and returns their exit codes."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target,
+                         args=(r, world, os.path.join(tmp, store), tmp))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [p.exitcode for p in procs]
+
+
+def _tp_rank(rank, world, store, tmp):
+    """One of two processes on the one card in a gloo group at the file
+    ``store``, laid out by ``parallel.make_mesh`` as a (data 1, model 2)
+    mesh (``init_distributed`` would give rank 1 a second card): one
+    float64 B=4 flagship step on the plain core (dropout 0) of the model
+    sharded by ``parallel.distribute``, its gradients gathered whole, the
+    running statistics, the memory of the step (``_step_gib``), and its bytes
+    of parameters and, after an AdamW step, of AdamW's moments. Writes
+    ``tmp/tp<rank>.pt``."""
+    import faulthandler
+
+    import torch.distributed as dist
+
+    from dpft_tpu_torch import parallel
+    from dpft_tpu_torch.training import CentralizedTrainer
+    from dpft_tpu_torch.utils.device import use_full_float32
+
+    faulthandler.enable()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    use_full_float32()
+    result = {}
+    try:
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                world_size=world, rank=rank)
+        with open(os.path.join(ROOT, "config", "kradar.json")) as f:
+            config = _dp_config(json.load(f))
+        parallel.make_mesh(world, torch.device("cuda"))
+        trainer = CentralizedTrainer.from_config(config)
+        batch, targets = (_in_dtype(t, torch.float64)
+                          for t in _cuda_batch(config, seed=20))
+        model = _dp_model(config, torch.float64)
+        parallel.distribute(model)
+        result["param_bytes"] = _local_bytes(model.parameters())
+        result["step_gib"] = _step_gib(
+            lambda: _dp_parity_step(trainer, model, model, batch, targets),
+            result["param_bytes"])
+        loss, grads, stats = _dp_parity_step(trainer, model, model,
+                                             batch, targets)
+        optimizer = trainer.optimizer_factory(model.parameters())
+        trainer.train_step(model, batch, targets)
+        optimizer.step()
+        result["moment_bytes"] = _local_bytes(
+            v for s in optimizer.state.values() for v in s.values()
+            if v.dim() > 0)
+        result["float64"] = {
+            "loss": loss, "stats": {k: v.cpu() for k, v in stats.items()},
+            "grads": {k: v.cpu() for k, v in grads.items()}}
+        if rank > 0:
+            del result["float64"]["grads"], result["float64"]["stats"]
+        torch.save(result, os.path.join(tmp, f"tp{rank}.pt"))
+    finally:
+        parallel.shutdown()
+
+
+def _step_gib(step, param_bytes):
+    """GiB that ``step()`` needs on the card: ``param_bytes`` (the
+    parameters that it runs on) and its peak above what the process held
+    before it, which leaves out what else the process holds."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    return (param_bytes + torch.cuda.max_memory_allocated() - held) / 2 ** 30
+
+
+def _flat(tree, prefix=""):
+    """Every tensor and number of a nested state (dicts and lists), by
+    its path."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}/{k}"))
+    return out
+
+
+def _hold_files(what, got, want, tol):
+    """Two saved states (a checkpoint, an optimizer state) with the same
+    paths: every float tensor within ``tol`` of its largest element, every
+    other value equal. Returns the worst relative error."""
+    got, want = _flat(got), _flat(want)
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: other keys "
+                             f"{sorted(got.keys() ^ want.keys())[:5]}")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, torch.Tensor) and w.is_floating_point():
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{what} {k}: {g.dtype} {tuple(g.shape)}"
+                                     f" vs {w.dtype} {tuple(w.shape)}")
+            err = ((g - w).abs().max() / w.abs().max().clamp_min(1e-300)
+                   ).item() if w.numel() else 0.0
+            if not err <= tol:
+                raise AssertionError(f"{what} {k}: err {err:.3e} of its max "
+                                     f"exceeds {tol}")
+            worst = max(worst, err)
+        elif not (torch.equal(g, w) if isinstance(w, torch.Tensor)
+                  else g == w):
+            raise AssertionError(f"{what} {k}: {g} vs {w}")
+    return worst
+
+
+# The trainer's float64 run in a one-rank group against the run without,
+# both with SGD and momentum. Two runs without a group are bit-equal under
+# deterministic algorithms, but the sharded run's arithmetic is not that
+# of the run without at the last bit, and at random init the flagship step
+# amplifies a rounding difference some 1e7 times (PR 10's probes: a
+# relative nudge of the inputs by 1e-10 moves the float64 gradients by
+# 4.4e-4 of their largest). Under AdamW that cannot be held: a gradient
+# that is zero but for rounding (the attention's key bias) moves its
+# parameter by the learning rate, with the sign of the rounding (1e-2 of
+# in_proj_bias's largest element apart after two steps); under SGD it
+# moves it by the rounding times the learning rate. A fault in the
+# trainer's sharded path (a gradient not synced, a momentum lost or
+# misplaced on resume) moves a tensor by the size of an update, far above
+# this bound.
+TP_FIT_TOL = 1e-6
+
+
+def _tp_fit(config, train, val, dst, resume=None):
+    """``CentralizedTrainer.train`` of the float64 flagship on the plain
+    core (dropout 0) from seed 0, with SGD and momentum (``TP_FIT_TOL``
+    says why not AdamW), ``train.accumulate_steps`` 2 (the first
+    micro-batch's backward does not sync, ``parallel.gradient_sync``) and
+    ``train.save_optimizer``: epoch 0,
+    then epoch 1 resumed in a model built anew from the epoch-0
+    checkpoint and its optimizer state that the run under ``resume``
+    wrote (this run's without). cuDNN and torch's other operators run
+    their deterministic algorithms (the plain core's gather backward adds
+    by atomics otherwise). In a process group the model is sharded over
+    the group's mesh by the trainer itself. Returns per epoch the loss
+    history, the checkpoint and the optimizer state that the run wrote
+    (on the host)."""
+    import warnings
+
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("once")  # a warning per operator
+            for epoch in (0, 1):
+                runs.append(_tp_fit_epoch(config, train, val, dst, epoch,
+                                          resume or dst))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+    return runs
+
+
+def _tp_fit_epoch(config, train, val, dst, epoch, resume):
+    """One run of ``_tp_fit``: epoch ``epoch``, resumed from the epoch
+    before it under ``resume`` where there is one."""
+    from dpft_tpu_torch.models.registry import optimizer_state_path
+    from dpft_tpu_torch.training import trainer as trainer_lib
+
+    cfg = json.loads(json.dumps(config))
+    cfg["train"].update(epochs=epoch + 1, save_optimizer=True,
+                        accumulate_steps=2, optimizer={
+                            "name": "SGD", "lr": 1e-4, "momentum": 0.9})
+    model = _dp_model(cfg, torch.float64)
+    optimizer_state = None
+    if epoch:
+        path = trainer_lib.checkpoint_path(resume, "ts", epoch - 1)
+        model.load_state_dict(torch.load(path, map_location="cuda",
+                                         weights_only=True))
+        optimizer_state = trainer_lib.load_optimizer_state(path)
+    result = trainer_lib.CentralizedTrainer.from_config(cfg)(
+        model, train, val, start_epoch=epoch, timestamp="ts", dst=dst,
+        optimizer_state=optimizer_state)
+    path = trainer_lib.checkpoint_path(dst, "ts", epoch)
+    return (result["history"], torch.load(path, weights_only=True),
+            torch.load(optimizer_state_path(path), weights_only=True))
+
+
+def phase_tensor_parallel(config, view_shapes):
+    """Tensor parallelism (``computing.model_parallel``, FSDP2) on the one
+    card (the train_tp path).
+
+    (1) One NCCL rank joined through ``parallel.init_distributed``'s
+    torchrun route with ``computing.model_parallel`` 1, whose mesh is (1,
+    1): the flagship B=4 f32 step (dropout 0) through
+    ``parallel.distribute`` equals the step without a group (loss 1e-4
+    relative, gradients and running statistics 1e-3) with 12 + 12 launches;
+    ms per step. Then ``CentralizedTrainer`` in that group, in float64 on
+    the plain core with deterministic algorithms and SGD with momentum
+    (``TP_FIT_TOL``), ``accumulate_steps`` 2, two B=2 steps and a validation
+    batch with ``train.save_optimizer``, and a second epoch resumed from the
+    epoch-0 checkpoint and its optimizer state that the run without a group
+    wrote (both runs resume from the same files): the trainer shards the
+    model, syncs the gradients, gathers the checkpoint and the optimizer
+    state whole to rank 0 and lays a single process's state out over the
+    shards. Every tensor of both epochs' checkpoints and optimizer states
+    equals the same run without a group within ``TP_FIT_TOL`` of its largest
+    element, the rest exactly, and the loss histories (computed in float32)
+    within 1e-6 (relative); the spread of two runs without a group is
+    printed beside it. The epoch-1 checkpoint loads in one process (the
+    config's float32 model) with its tensors' bits after that cast.
+
+    (2) Two gloo ranks sharing the card on a (1, 2) mesh: in float64 on
+    the plain core their step equals the float64 step without a group
+    within 1e-9 of each tensor's largest, and each rank holds half the
+    parameter and moment bytes; the memory of each rank's step
+    (``_step_gib``) beside the step's without a group, each after one
+    step on both sides. Returns the NCCL step's launches."""
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch import parallel
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.ops import deform_attn as da
+    from dpft_tpu_torch.training import CentralizedTrainer
+
+    config = _dp_config(config)
+    config["computing"]["model_parallel"] = 1
+    trainer = CentralizedTrainer.from_config(config)
+    batch, targets = _cuda_batch(config, seed=20)
+    expected = _expected_launches(config, view_shapes, 1, 1)
+    model = _dp_model(config)
+    ref = _dp_parity_step(trainer, model, model, batch, targets)
+    full_bytes = _local_bytes(model.parameters())
+    del model
+    batch64, targets64 = (_in_dtype(t, torch.float64)
+                          for t in (batch, targets))
+    model64 = _dp_model(config, torch.float64)
+    step64 = _step_gib(lambda: _dp_parity_step(trainer, model64, model64,
+                                               batch64, targets64),
+                       _local_bytes(model64.parameters()))
+    ref64 = _dp_parity_step(trainer, model64, model64, batch64, targets64)
+    ref64 = (ref64[0], {k: v.cpu() for k, v in ref64[1].items()},
+             {k: v.cpu() for k, v in ref64[2].items()})
+    del model64
+    # The trainer takes host batches, as a loader gives them.
+    host = [{k: v.astype(np.float64) if v.dtype.kind == "f" else v
+             for k, v in t.items()} for t in _host_batch(config, seed=20)]
+    train = [(_rows(host[0], r, 2), _rows(host[1], r, 2)) for r in (0, 1)]
+    host = [{k: v.astype(np.float64) if v.dtype.kind == "f" else v
+             for k, v in t.items()} for t in _host_batch(config, seed=22)]
+    val = [(_rows(host[0], 0, 2), _rows(host[1], 0, 2))]
+    root = tempfile.mkdtemp(prefix="dpft_tp_")
+    try:
+        want = _tp_fit(config, train, val, os.path.join(root, "alone"))
+        again = _tp_fit(config, train, val, os.path.join(root, "again"))
+        spread = max(_hold_files(f"epoch {epoch} again", a[i], w[i], 1.0)
+                     for epoch, (a, w) in enumerate(zip(again, want))
+                     for i in (1, 2))
+        torch.cuda.empty_cache()
+
+        env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+               "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+               "LOCAL_WORLD_SIZE": "1"}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            parallel.init_distributed(config, "cuda")
+            if parallel.model_parallel_size() != 1 or \
+                    parallel.data_world_size() != 1:
+                raise AssertionError("init_distributed made no (1, 1) mesh")
+            model = _dp_model(config)
+            net = parallel.distribute(model)
+            _reset_launches()
+            loss, grads, stats = _dp_parity_step(trainer, net, model, batch,
+                                                 targets)
+            launches = _read_launches()
+            if launches != expected:
+                raise AssertionError(f"the sharded step launched {launches}"
+                                     f", expected {expected}")
+            _compare_steps("FSDP2 (1, 1) mesh, NCCL world 1", "no group",
+                           (loss, grads), ref[:2])
+            _compare_stats("FSDP2 (1, 1) mesh vs no group", stats, ref[2])
+            times = _timed_steps(trainer, net, model, batch, targets)
+            del net, model
+            torch.cuda.empty_cache()
+            got = _tp_fit(config, train, val, os.path.join(root, "group"),
+                          resume=os.path.join(root, "alone"))
+        finally:
+            parallel.shutdown()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        worst = 0.0
+        for epoch, ((history, state, optim),
+                    (w_history, w_state, w_optim)) in enumerate(zip(got,
+                                                                     want)):
+            if not np.allclose(history, w_history, rtol=1e-6, atol=0):
+                raise AssertionError(f"epoch {epoch}: loss history "
+                                     f"{history} vs {w_history}")
+            if list(state) != list(w_state):
+                raise AssertionError(f"epoch {epoch}: checkpoint keys")
+            worst = max(worst, _hold_files(f"epoch {epoch} checkpoint",
+                                           state, w_state, TP_FIT_TOL),
+                        _hold_files(f"epoch {epoch} optimizer state", optim,
+                                    w_optim, TP_FIT_TOL))
+        path = os.path.join(root, "group", "ts", "checkpoints",
+                            "ts_checkpoint_0001.pt")
+        # A float64 file, loaded into the config's float32 model.
+        loaded = registry.load(path, device="cuda")[0].state_dict()
+        differ = [k for k, v in got[1][1].items()
+                  if not torch.equal(loaded[k].cpu(), v.to(loaded[k].dtype))]
+        if loaded.keys() != got[1][1].keys() or differ:
+            raise AssertionError(f"the group's checkpoint loads other bits: "
+                                 f"{differ[:5]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[tensor_parallel] CentralizedTrainer in a one-rank NCCL group "
+          f"(computing.model_parallel 1, the (1, 1) mesh of "
+          f"init_distributed), float64 plain core, deterministic "
+          f"algorithms, SGD with momentum, accumulate_steps 2 over 2 B=2 "
+          f"steps + 1 validation batch, save_optimizer, "
+          f"then an epoch resumed from the epoch-0 checkpoint and its "
+          f"optimizer state of the run without a group: both epochs' "
+          f"checkpoints ({len(got[1][1])} tensors) and optimizer states "
+          f"within {worst:.3e} of each tensor's largest of the run without a "
+          f"group (tol {TP_FIT_TOL}; two runs without a group {spread:.3e} "
+          f"apart), "
+          f"histories {[h for h, _, _ in got]}; the "
+          f"epoch-1 checkpoint loads in one process (the config's float32 "
+          f"model) with the bits of its tensors cast ok")
+    print(f"[tensor_parallel] B={B_TRAIN} f32 step, FSDP2 (1, 1) mesh, NCCL "
+          f"world 1: {times[0]:.3f} ms (std {times[1]:.3f}, 5 steps by CUDA "
+          f"events after 2); peak memory {times[2]:.3f} GiB; launches "
+          f"{launches}")
+    torch.cuda.empty_cache()
+
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        codes = _spawn_ranks(_tp_rank, world, tmp, "store")
+        if codes != [0] * world:
+            raise AssertionError(f"the gloo ranks exited with {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"),
+                            weights_only=True) for r in range(world)]
+    got = ranks[0]["float64"]
+    if {r["float64"]["loss"] for r in ranks} != {got["loss"]}:
+        raise AssertionError("the model ranks' losses differ")
+    _compare_steps(f"FSDP2 (1, {world}) mesh, {world} gloo ranks, float64",
+                   "no group, float64", (got["loss"], got["grads"]),
+                   ref64[:2], tol=1e-9)
+    _compare_stats(f"(1, {world}) mesh vs no group, float64", got["stats"],
+                   ref64[2], tol=1e-9)
+    for r, result in enumerate(ranks):
+        if not result["param_bytes"] * world <= full_bytes * 2 + 2 ** 20:
+            raise AssertionError(f"gloo rank {r} holds "
+                                 f"{result['param_bytes']} parameter bytes")
+        print(f"[tensor_parallel] gloo rank {r} of the (1, {world}) mesh: "
+              f"{result['param_bytes'] / 2 ** 20:.1f} MiB of float64 "
+              f"parameters ({full_bytes * 2 / 2 ** 20:.1f} MiB whole), "
+              f"{result['moment_bytes'] / 2 ** 20:.1f} MiB of AdamW moments;"
+              f" the B={B_TRAIN} float64 step needs {result['step_gib']:.3f} "
+              f"GiB, its parameters and its peak above what the rank held "
+              f"before ({step64:.3f} GiB without a group)")
+    msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+    return {"train_tp": launches}
+
+
+def phase_checkpoint_saver(config, model):
+    """The flagship's checkpoint as an epoch writes it
+    (``registry.CheckpointSaver``): ms that the epoch waits (the copy of
+    the state_dict to the host) against ms of the whole commit in the
+    background, and the file's size, by the host clock."""
+    from dpft_tpu_torch.models import registry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = registry.CheckpointSaver()
+        for epoch in range(2):
+            path = os.path.join(tmp, f"ts_checkpoint_{epoch:04d}.pt")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saver.save(model, config, path)
+            waited = time.perf_counter() - t0
+            saver.wait()
+            whole = time.perf_counter() - t0
+            state = torch.load(path, weights_only=True)
+            differ = [k for k, v in model.state_dict().items()
+                      if not torch.equal(state[k], v.cpu())]
+            if differ or not os.path.isfile(
+                    os.path.join(tmp, "config.json")):
+                raise AssertionError(f"the checkpoint differs {differ[:5]}")
+            print(f"[checkpoint_saver] epoch {epoch}: the epoch waits "
+                  f"{1e3 * waited:.1f} ms (copy to the host), the commit "
+                  f"ends after {1e3 * whole:.1f} ms; "
+                  f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, same bits, "
+                  "config.json beside it ok")
+
+
+# How far apart, in float32 ulps of the value, the two doppler bins' maxima
+# of 10 log10 may lie where the host's lookup names another bin than the
+# card's: each side's log10f errs by a few ulps (-Ofast's vector log10f on
+# the host, CUDA's log10f on the card), and 10 x rounds once more.
+TIE_ULPS = 8
+
+
+def _check_native_plane(what, got, want, cube, plane):
+    """``_check_plane`` for the host reduction against the card's, where
+    the lookup channel (3) may differ only at ties: at each pixel where it
+    does, the maxima of 10 log10 over the inner axis (elevation for "ra",
+    the cropped range for "ea") in the doppler bins that ``got`` and
+    ``want`` name, taken in float64 from the float32 cube (``cube()``
+    gives it), lie within ``TIE_ULPS`` float32 ulps of each other. Returns
+    ``_check_plane``'s numbers and the gap in ulps at each such pixel."""
+    from dpft_tpu_torch.ops import radar_reduce as rr
+
+    err, mismatches, typical, errs = _check_plane(what, got, want,
+                                                  exact_lookup=False)
+    gaps = []
+    if mismatches:
+        power = torch.as_tensor(cube(), dtype=torch.float32)
+        if plane == "ra":
+            inner = power.amax(2)
+        else:
+            lo, hi = rr._crop(power.shape[1])
+            inner = power[:, lo:hi].amax(1)
+        db = 10.0 * torch.log10(inner.double())
+        raster = torch.as_tensor(rr._raster(power.shape[0]))
+        for i, j in (got[..., 3] != want[..., 3]).nonzero().tolist():
+            a, b = (db[int((raster == v[i, j, 3]).nonzero()[0, 0]), i, j]
+                    .item() for v in (got, want))
+            gap = abs(a - b) / float(np.spacing(np.float32(max(abs(a),
+                                                               abs(b)))))
+            if not gap <= TIE_ULPS:
+                raise AssertionError(
+                    f"{what}: the lookup at pixel {(i, j)} names another bin"
+                    f" ({got[i, j, 3].item()} vs {want[i, j, 3].item()}) whose"
+                    f" maxima {a!r} and {b!r} dB lie {gap:.1f} float32 ulps "
+                    f"apart, more than a tie's {TIE_ULPS}")
+            gaps.append(round(gap, 2))
+    return err, mismatches, typical, errs, gaps
+
+
+def _cpu_model():
+    """The host CPU's model name (``lscpu``, else /proc/cpuinfo)."""
+    for line in _run(["lscpu"]).splitlines():
+        if line.startswith("Model name:"):
+            return line.split(":", 1)[1].strip()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip().lower()
+                if key in ("model name", "cpu model", "processor model"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    import platform
+    return f"not named by lscpu or /proc/cpuinfo ({platform.machine()})"
+
+
+def phase_native_radar():
+    """The host SIMD reduction (``prepare_device: "native"``, csrc/
+    radar_reduce_host.cc built by g++ into build/kernels) on a full
+    (64, 256, 37, 107) cube against the CUDA kernels' planes, at phase
+    14's tolerance, the lookup channel equal but at ties
+    (``_check_native_plane``); ms per cube on the host
+    (the CPU's model name beside it)."""
+    from dpft_tpu_torch.ops import radar_reduce as rr
+    from dpft_tpu_torch.ops.radar_reduce_native import \
+        reduce_tesseract_native
+
+    cube = _power_cube(KRADAR_CUBE, seed=31)
+    want = [p.cpu() for p in rr.reduce_tesseract(torch.from_numpy(cube)
+                                                  .cuda())]
+    got, build_s = _host_s(lambda: reduce_tesseract_native(cube))
+    times = []
+    for _ in range(3):
+        _, s = _host_s(lambda: reduce_tesseract_native(cube))
+        times.append(s)
+    for name, g, w in zip(("RA", "EA"), got, want):
+        err, mismatches, typical, errs, gaps = _check_native_plane(
+            f"native {name}", torch.from_numpy(g), w, lambda: cube,
+            name.lower())
+        print(f"[native_radar] {name} plane of {KRADAR_CUBE}, host SIMD vs "
+              f"CUDA kernels: max abs err {err:.3e} per channel "
+              f"{_channels(errs)}, typical {_channels(typical)}; "
+              f"{mismatches} of {g[..., 3].size} lookups on another bin, at "
+              f"ties {gaps} float32 ulps apart (at most {TIE_ULPS}) ok")
+    print(f"[native_radar] host reduction of one cube: "
+          f"{1e3 * min(times):.1f} / {1e3 * float(np.median(times)):.1f} ms "
+          f"(best / median of 3, host clock; first call with the g++ build "
+          f"{build_s:.1f} s) on {_cpu_model()}, {os.cpu_count()} cores")
+
+
+def phase_tree_clis(root, src, dst, config):
+    """On the raw tree and the tree that the prepare phase wrote: prepare
+    with ``prepare_device: "native"`` (the same files, ``ra.npy`` /
+    ``ea.npy`` as ``_check_native_plane`` holds them), then
+    ``dpft_tpu_torch.train.main`` for one epoch and
+    ``dpft_tpu_torch.evaluate.main`` with config/kradar_radar_bev.json (the
+    BEV plane alone, full width) on the card."""
+    from dpft_tpu_torch import evaluate, prepare, train
+    from dpft_tpu_torch.data import prepare as build_processor
+
+    native = json.loads(json.dumps(config))
+    native["data"]["prepare_device"] = "native"
+    cfg = os.path.join(root, "native.json")
+    with open(cfg, "w") as f:
+        json.dump(native, f)
+    out = os.path.join(root, "native")
+    _reset_launches()
+    _, native_s = _host_s(lambda: prepare.main(src, cfg, out))
+    if any(_read_launches().values()):
+        raise AssertionError(f"native prepare launched {_read_launches()}")
+    files = sorted(os.path.relpath(os.path.join(d, n), out)
+                   for d, _, names in os.walk(out) for n in names)
+    want = sorted(os.path.relpath(os.path.join(d, n), dst)
+                  for d, _, names in os.walk(dst) for n in names)
+    if files != want:
+        raise AssertionError("native prepare wrote other files")
+    processor = build_processor(config["dataset"], config)
+    worst, moved, ties = 0.0, 0, []
+    for name in files:
+        plane = os.path.basename(name)[:2]
+        if os.path.basename(name) in ("ra.npy", "ea.npy"):
+            sid = os.path.basename(os.path.dirname(name))
+            err, mismatches, _, _, gaps = _check_native_plane(
+                f"native {name}", torch.from_numpy(np.load(os.path.join(
+                    out, name))), torch.from_numpy(np.load(os.path.join(
+                        dst, name))),
+                lambda: processor.get_radar_tesseract(os.path.join(
+                    src, SEQUENCE, "radar_tesseract",
+                    f"tesseract_{sid.split('_')[0]}.mat")), plane)
+            worst, moved = max(worst, err), moved + mismatches
+            ties += gaps
+    print(f"[prepare] prepare_device \"native\" on the raw tree: "
+          f"{native_s:.2f} s, no kernel launched, the same {len(files)} "
+          f"files, planes within {worst:.3e} of the card's, {moved} lookups "
+          f"on another bin in all, at ties {ties} float32 ulps apart (at "
+          f"most {TIE_ULPS}) ok")
+
+    with open(os.path.join(ROOT, "config", "kradar_radar_bev.json")) as f:
+        bev = json.load(f)
+    bev["train"].update(epochs=1, logging="step")
+    cfg = os.path.join(root, "bev.json")
+    with open(cfg, "w") as f:
+        json.dump(bev, f)
+    log = os.path.join(root, "bev_log")
+    _, train_s = _host_s(lambda: train.main(dst, cfg, log, device="cuda"))
+    ckpts = [os.path.join(d, n) for d, _, names in os.walk(log)
+             for n in names if n.endswith("_checkpoint_0000.pt")]
+    if len(ckpts) != 1:
+        raise AssertionError(f"BEV training wrote {ckpts}")
+    scalars = [os.path.join(d, n) for d, _, names in os.walk(log)
+               for n in names if n == "scalars.jsonl"]
+    with open(scalars[0]) as f:
+        steps = [row for row in map(json.loads, f)
+                 if row["split"] == "train" and "step" in row]
+    trained = sum(row["loss"] > 0 for row in steps)
+    if not trained:
+        raise AssertionError(f"BEV training: no step with a loss above 0 "
+                             f"({steps})")
+    _, eval_s = _host_s(lambda: evaluate.main(dst, cfg, ckpts[0],
+                                              os.path.join(root, "bev_eval"),
+                                              device="cuda"))
+    results = [os.path.join(d, n) for d, _, names in
+               os.walk(os.path.join(root, "bev_eval"))
+               for n in names if n == "results.json"]
+    with open(results[0]) as f:
+        metrics = json.load(f)
+    if not all(math.isfinite(metrics[k]) for k in ("mAP", "mGIoU")):
+        raise AssertionError(f"BEV evaluation: {metrics}")
+    boxes, present = _bev_test_classes(bev, dst, ckpts[0])
+    if not sum(boxes.values()):
+        raise AssertionError("the BEV test split has no labelled object")
+    # The metric (the reference's rule) scores a sample 1.0 where fewer
+    # than two classes are present among its targets and predictions.
+    if metrics["mAP"] == 1.0 and any(len(p) > 1 for p in present):
+        raise AssertionError(f"BEV mAP 1.0 with the classes {present} "
+                             "present")
+    print(f"[prepare] kradar_radar_bev.json on this tree: train.main one "
+          f"epoch {train_s:.1f} s, {trained} of {len(steps)} steps with a "
+          f"loss above 0; evaluate.main {eval_s:.1f} s (mAP "
+          f"{metrics['mAP']}, mGIoU {metrics['mGIoU']}) on "
+          f"{sum(boxes.values())} labelled objects of the classes "
+          f"{dict(boxes)}; the classes present per test sample (targets and "
+          f"predicted labels of the trained checkpoint) {present} ok")
+
+
+def _bev_test_classes(config, src, checkpoint):
+    """The test split of ``src`` through the model of ``checkpoint``: the
+    count of real targets per class, and per real sample the classes
+    present among its targets and its queries' predicted labels."""
+    import collections
+
+    from dpft_tpu_torch.data import init as init_dataset
+    from dpft_tpu_torch.data import load as load_dataset
+    from dpft_tpu_torch.evaluation.evaluator import to_device
+    from dpft_tpu_torch.models import registry
+
+    loader = load_dataset(init_dataset(config["dataset"], src=src,
+                                       split="test", config=config),
+                          config=config, shuffle=False, pad_last=True)
+    model = registry.load(checkpoint, device="cuda")[0].eval()
+    boxes, present = collections.Counter(), []
+    with torch.inference_mode():
+        for inputs, targets in loader:
+            labels = model(to_device(inputs, torch.device("cuda")))[
+                "class"].argmax(-1).cpu()
+            gt = targets["gt_class"].argmax(-1)
+            for b in range(len(gt)):
+                if not targets["sample_mask"][b]:
+                    continue
+                real = gt[b][targets["gt_mask"][b]].tolist()
+                boxes.update(real)
+                present.append(sorted(set(real) | set(labels[b].tolist())))
+    del model
+    return boxes, present
+
+
 def _assert_full_float32(after):
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
@@ -3545,6 +4370,10 @@ def main():
     phase_train_timing(config, model)
     paths.update(_timed("data_parallel", phase_data_parallel, config,
                         view_shapes))
+    paths.update(_timed("tensor_parallel", phase_tensor_parallel, config,
+                        view_shapes))
+    paths.update(_timed("remat", phase_remat, config))
+    _timed("checkpoint_saver", phase_checkpoint_saver, config, model)
 
     mm_fwd_report, mm_bwd_report = phase_mm_vs_plain(view_shapes)
     phase_core_calls(view_shapes)
@@ -3571,6 +4400,8 @@ def main():
     del mm_model
     torch.cuda.empty_cache()
     paths.update(_timed("families", phase_families, config))
+    paths.update(_timed("configs", phase_configs))
+    _timed("native_radar", phase_native_radar)
     paths["prepare"] = _timed("prepare and reference_ckpt", phase_prepare,
                               config_path, config, model)
     # `launches` is the count on the kernel's own main path.

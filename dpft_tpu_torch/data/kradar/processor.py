@@ -11,7 +11,9 @@ contents, same split/sequence directory layout.
 Delta to the reference: the 4D tesseract reduction (the ETL hot loop) runs
 on the processor's ``device`` (dpft_tpu_torch.ops.radar_reduce: hand-written
 CUDA kernels on the card, plain PyTorch on the CPU) instead of per-frame
-NumPy; `use_device=False` selects the NumPy path.
+NumPy; `use_device=False` selects the NumPy path and
+``prepare_device: "native"`` the host SIMD kernel
+(dpft_tpu_torch.ops.radar_reduce_native).
 
 Fixed reference bug (documented delta): the reference loads os2.npy from
 the os1 PCD (processor.py:686); here os2.npy comes from the os2 file.
@@ -34,6 +36,7 @@ from dpft_tpu_torch.data.kradar import splits as split_tables
 from dpft_tpu_torch.data.pcd import read_pcd
 from dpft_tpu_torch.ops.radar_reduce import (reduce_tesseract,
                                              reduce_tesseract_np)
+from dpft_tpu_torch.ops.radar_reduce_native import reduce_tesseract_native
 from dpft_tpu_torch.utils.device import resolve_device
 
 DEFAULT_CATEGORIES = {
@@ -85,18 +88,13 @@ class KRadarProcessor:
         self.use_device = use_device
         # 'default' runs the reduction on `device` (the card unless the
         # caller asks for 'cpu'); 'cpu' pins it to the plain version on the
-        # host whatever `device` says; 'native' (the JAX package's host SIMD
-        # kernel) has no counterpart here yet.
-        if prepare_device == "native":
-            raise NotImplementedError(
-                "prepare_device 'native' (the host SIMD kernel "
-                "native/radar_reduce.cc) is not ported; use 'default' or "
-                "'cpu'")
+        # host whatever `device` says; 'native' runs the host SIMD kernel
+        # (ops/radar_reduce_native.py) and needs no device.
         self.prepare_device = prepare_device
         # Resolved here so that asking for a card where there is none fails
         # before any file is read.
         self.device = None
-        if use_device:
+        if use_device and prepare_device != "native":
             self.device = resolve_device(
                 "cpu" if prepare_device == "cpu" else device)
 
@@ -284,7 +282,13 @@ class KRadarProcessor:
         casts it to float32 there (round to nearest, as numpy's cast) and
         reads it in that layout with no further copy: a worker holds one
         float64 and one float32 cube on the device for the length of the
-        call."""
+        call. ``prepare_device: "native"`` reduces the cube, cast to
+        float32 on the host, with the host SIMD kernel."""
+        if self.prepare_device == "native":
+            ra, ea = reduce_tesseract_native(self.get_radar_tesseract(
+                filename).astype(np.float32, copy=False))
+            return (ra.astype(self.dtype, copy=False),
+                    ea.astype(self.dtype, copy=False))
         if not self.use_device:
             ra, ea = reduce_tesseract_np(self.get_radar_tesseract(filename))
             return ra.astype(self.dtype), ea.astype(self.dtype)

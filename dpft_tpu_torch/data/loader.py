@@ -243,8 +243,11 @@ def load_listed(dataset, config: Dict[str, Any], drop_last: bool | None = None,
     (train CLI policy) have nothing to pad.
 
     Under data parallelism the loader yields this rank's rows of each
-    node batch (``shard``, from dpft_tpu_torch.parallel)."""
-    from dpft_tpu_torch.parallel import local_rank_index, local_world_size
+    node batch (``shard``, from dpft_tpu_torch.parallel): the node's
+    data-parallel ranks split it, and the ranks of one model group (a
+    (data, model) mesh) load the same rows."""
+    from dpft_tpu_torch.parallel import (local_rank_index, local_world_size,
+                                         model_parallel_size)
 
     train_cfg = config.get("train", {})
     drop = bool(drop_last) if drop_last is not None else False
@@ -256,5 +259,6 @@ def load_listed(dataset, config: Dict[str, Any], drop_last: bool | None = None,
         drop_last=drop,
         pad_last=(not drop) if pad_last is None else pad_last,
         seed=config.get("computing", {}).get("seed"),
-        shard=(local_rank_index(), local_world_size()),
+        shard=(local_rank_index() // model_parallel_size(),
+               local_world_size() // model_parallel_size()),
     )

@@ -65,6 +65,11 @@ def run(local_rank: int, local_world: int, init_method: Optional[str],
 def main(src: str, cfg: str, checkpoint: str, dst: str,
          device: str = "cuda") -> None:
     config = load_config(cfg)
+    # Data parallel only: as in the JAX package, only training reads
+    # computing.model_parallel.
+    config = {**config, "computing": {
+        k: v for k, v in config.get("computing", {}).items()
+        if k != "model_parallel"}}
     parallel.launch(run, config, device, src, config, checkpoint, dst,
                     device)
 

@@ -12,14 +12,25 @@ channels_last memory, which cuDNN convolves directly. With
 ``computing.compute_dtype: bfloat16`` the forward runs under autocast:
 parameters stay float32, matmuls and convolutions run in bfloat16, softmax
 and LayerNorm in float32.
+
+With ``computing.remat: true`` each backbone runs under
+``torch.utils.checkpoint`` (the counterpart of the JAX package's
+``_maybe_remat``, flax's lifted remat of the backbones only): its
+activations are dropped after the forward and recomputed in the backward,
+less memory for more FLOPs, with the same gradients and the same
+state_dict keys. The recompute leaves BatchNorm's running statistics and
+counters as the forward left them (JAX's remat commits ``batch_stats``
+once).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+import contextlib
+from typing import Any, Dict, Iterator, List, Sequence
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from dpft_tpu_torch.models.backbones import build_backbone
 from dpft_tpu_torch.models.embeddings import build_embedding
@@ -35,7 +46,8 @@ class DPFT(nn.Module):
     def __init__(self, inputs: Sequence[str], skiplinks: Dict[str, bool],
                  backbones: Dict[str, nn.Module], necks: Dict[str, nn.Module],
                  embeddings: Dict[str, nn.Module], querent: nn.Module,
-                 fuser: nn.Module, compute_dtype: torch.dtype = torch.float32):
+                 fuser: nn.Module, compute_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.inputs = list(inputs)
         self.skiplinks = dict(skiplinks)
@@ -45,6 +57,16 @@ class DPFT(nn.Module):
         self.querent = querent
         self.fuser = fuser
         self.compute_dtype = compute_dtype
+        self.remat = remat
+
+    def _backbone(self, name: str, raw: torch.Tensor) -> Dict[str, Any]:
+        backbone = self.backbones[name]
+        if not (self.remat and torch.is_grad_enabled()):
+            return backbone(raw)
+        return torch.utils.checkpoint.checkpoint(
+            backbone, raw, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                _buffers_kept(backbone)))
 
     def features(self, batch: Dict[str, torch.Tensor]) -> List[ViewFeatures]:
         """Per view: the embedded FPN levels, flattened to (B, Len, C), and
@@ -52,7 +74,7 @@ class DPFT(nn.Module):
         views = []
         for name in self.inputs:
             raw = batch[name].permute(0, 3, 1, 2)  # NHWC -> NCHW view
-            feats = self.backbones[name](raw)
+            feats = self._backbone(name, raw)
             if self.skiplinks.get(name, False):
                 feats = {"0": raw, **feats}  # raw data becomes level '0'
             feats = self.embeddings[name](self.necks[name](feats))
@@ -74,6 +96,20 @@ class DPFT(nn.Module):
                           for n in self.inputs]
             shape = [batch[f"{n}_shape"][:, :2].float() for n in self.inputs]
             return self.fuser(views, shape, projection, out)
+
+
+@contextlib.contextmanager
+def _buffers_kept(module: nn.Module) -> Iterator[None]:
+    """Restores ``module``'s buffers after the body: what a recompute of
+    its forward in train mode adds to BatchNorm's running statistics and
+    ``num_batches_tracked`` is taken back."""
+    saved = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for buffer, value in saved:
+                buffer.copy_(value)
 
 
 def from_config(config: Dict[str, Any]) -> DPFT:
@@ -104,6 +140,7 @@ def from_config(config: Dict[str, Any]) -> DPFT:
         fuser=build_fuser(model["fuser"]["name"], merged(model["fuser"]),
                           head=head),
         compute_dtype=get_compute_dtype(computing),
+        remat=bool(computing.get("remat", False)),
     )
 
 

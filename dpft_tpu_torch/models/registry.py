@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import os
 import os.path as osp
-from typing import Any, Dict, Optional, Tuple, Union
+import threading
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
@@ -54,13 +55,109 @@ def build(name: str, config: Dict[str, Any],
     return model.to(device).eval()
 
 
+def optimizer_state_path(checkpoint: str) -> str:
+    """Where the optimizer state of a checkpoint lies (save_optimizer)."""
+    return checkpoint[:-len(".pt")] + ".optim.pt"
+
+
+def host_copy(tree: Any) -> Any:
+    """``tree`` (nested dicts, lists and tuples) with every tensor copied
+    to the host: a copy that training, which updates its tensors in place,
+    cannot change while a writer thread reads it."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, Mapping):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
+def _commit(obj: Any, path: str) -> None:
+    """``torch.save`` of ``obj`` to a temporary name beside ``path``,
+    flushed to the disk, then renamed to ``path``: a reader finds the whole
+    file or none. A failed write removes the temporary file."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            torch.save(obj, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if osp.exists(tmp):
+            os.remove(tmp)
+        raise
+
+
+class CheckpointSaver:
+    """Per-epoch checkpoint writer (counterpart of the JAX package's
+    ``CheckpointSaver``, whose Orbax writer commits in the background by
+    an atomic rename).
+
+    ``save`` first finishes the save in flight, then copies the state to
+    the host on the calling thread (the only part a training epoch waits
+    for) and hands the copy to a writer thread, which commits each file by
+    an atomic rename (:func:`_commit`): the optimizer state of
+    ``train.save_optimizer`` first, then the model's ``.pt``. The config
+    goes beside it as ``config.json`` at the next ``wait()``, after the
+    commit, as in the JAX package. An exception of the writer is raised on
+    the caller's thread at the next ``save`` or ``wait``.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._pending: Optional[Tuple[str, Dict[str, Any]]] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, model: Union[torch.nn.Module, Mapping[str, torch.Tensor]],
+             config: Dict[str, Any], path: str, wait: bool = False,
+             optimizer_state: Optional[Dict[str, Any]] = None) -> None:
+        """Writes ``model``'s state_dict (or the state_dict ``model``) to
+        ``path``, and ``optimizer_state``, if given, to
+        :func:`optimizer_state_path`; with ``wait`` returns once both and
+        ``config.json`` are on the disk."""
+        self.wait()
+        path = osp.abspath(path)
+        os.makedirs(osp.dirname(path), exist_ok=True)
+        state = (model.state_dict() if isinstance(model, torch.nn.Module)
+                 else model)
+        files = [(host_copy(state), path)]
+        if optimizer_state is not None:
+            files.insert(0, (host_copy(optimizer_state),
+                             optimizer_state_path(path)))
+        self._pending = (path, config)
+        self._thread = threading.Thread(target=self._write, args=(files,),
+                                        name="checkpoint-writer")
+        self._thread.start()
+        if wait:
+            self.wait()
+
+    def _write(self, files) -> None:
+        try:
+            for obj, path in files:
+                _commit(obj, path)
+        except BaseException as error:  # raised again by wait()
+            self._error = error
+
+    def wait(self) -> None:
+        """Blocks until the save in flight is committed, then writes its
+        ``config.json``; raises the writer's exception, if any."""
+        if self._thread is None:
+            return
+        self._thread.join()
+        path, config = self._pending
+        error = self._error
+        self._thread = self._pending = self._error = None
+        if error is not None:
+            raise error
+        save_config(config, osp.join(osp.dirname(path), "config.json"))
+
+
 def save(model: torch.nn.Module, config: Dict[str, Any], path: str) -> None:
-    """Writes the state_dict to ``path`` and ``config.json`` beside it."""
-    path = osp.abspath(path)
-    os.makedirs(osp.dirname(path), exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               path)
-    save_config(config, osp.join(osp.dirname(path), "config.json"))
+    """Writes the state_dict to ``path`` and ``config.json`` beside it,
+    committed as :class:`CheckpointSaver` commits."""
+    CheckpointSaver().save(model, config, path, wait=True)
 
 
 def parse_checkpoint_name(path: str) -> Tuple[int, str]:

@@ -2,8 +2,9 @@
 
 Under pjit the JAX package's BatchNorm takes its statistics over the global
 batch (dpft_tpu/parallel/mesh.py): XLA all-reduces them across devices.
-``GlobalBatchNorm2d`` does the same across ranks, on the CPU (gloo) as on
-cards, which ``nn.SyncBatchNorm`` cannot: it refuses CPU tensors.
+``GlobalBatchNorm2d`` does the same across the data-parallel ranks (the
+'data' sub-group of a (data, model) mesh), on the CPU (gloo) as on cards,
+which ``nn.SyncBatchNorm`` cannot: it refuses CPU tensors.
 
 The statistics are merged in one all-gather per layer. Each rank takes its
 own count, mean and centered sum of squares per channel (two passes over
@@ -13,15 +14,15 @@ gives every rank every rank's block, and each merges them the same way
 times its mean's squared distance from the global mean). That is as
 stable as a two-pass variance over the whole batch and costs one
 collective instead of the two that an all-reduce of the mean, then of the
-centered sum, would. ``torch.distributed.nn.functional.all_gather``
-carries the gradient: its backward sums every rank's gradient of each
-block on the rank that sent it (a reduce-scatter), so the input gradient
-is the whole batch's. The normalization itself (``_Normalize``) subtracts the
+centered sum, would. The all-gather (``_AllGather``) carries the
+gradient: its backward sums every rank's gradient of each block on the
+rank that sent it, so the input gradient is the whole batch's. The normalization itself (``_Normalize``) subtracts the
 mean first and keeps only the input for its backward, as native
 BatchNorm does.
 
-In eval mode, and where no group of more than one rank exists, the module
-is ``nn.BatchNorm2d`` itself. It keeps ``nn.BatchNorm2d``'s parameters,
+The ranks are those of the group given to :func:`convert_batchnorm` (the
+world by default). In eval mode, and where that group has one rank or
+none exists, the module is ``nn.BatchNorm2d`` itself. It keeps ``nn.BatchNorm2d``'s parameters,
 buffers and state_dict keys, and updates ``running_var`` with the unbiased
 variance of the global batch (the global count).
 """
@@ -30,12 +31,33 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
-import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 
 
-def _distributed() -> bool:
-    return dist.is_initialized() and dist.get_world_size() > 1
+class _AllGather(torch.autograd.Function):
+    """Every rank's block of ``group``, stacked in group-rank order. The
+    backward gives each rank the sum, over ranks in that order, of every
+    rank's gradient of its block (``torch.distributed.nn``'s all-gather
+    does the same by a scatter that names the source by its rank in the
+    world, which fails on a sub-group; an all-gather of the gradients
+    works on any group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        parts = [torch.empty_like(grad)
+                 for _ in range(dist.get_world_size(ctx.group))]
+        dist.all_gather(parts, grad, group=ctx.group)
+        me = dist.get_rank(ctx.group)
+        return torch.sum(torch.stack([g[me] for g in parts]), dim=0), None
 
 
 class _Normalize(torch.autograd.Function):
@@ -65,11 +87,16 @@ class _Normalize(torch.autograd.Function):
 
 class GlobalBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode statistics are those of the
-    global batch across all ranks (see the module docstring)."""
+    global batch across the ranks of ``group`` (see the module
+    docstring)."""
+
+    group = None  # the process group; None is the world
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and _distributed()):
+        if not (self.training and dist.is_initialized() and
+                dist.get_world_size(self.group) > 1):
             return super().forward(x)
+        group = self.group
         self._check_input_dim(x)
         C = x.shape[1]
         dtype = torch.promote_types(x.dtype, torch.float32)
@@ -78,7 +105,7 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
         # Merged in float64: counts beyond 2 ** 24 stay exact.
         count = x.new_full((C,), x.numel() // C, dtype=torch.float64)
         rows = torch.stack([count, mean.double(), var.double() * count])
-        counts, means, m2 = torch.stack(dist_nn.all_gather(rows)).unbind(1)
+        counts, means, m2 = _AllGather.apply(rows, group).unbind(1)
         n = counts.sum(0)
         mean64 = (counts * means).sum(0) / n
         var64 = (m2.sum(0) + (counts * (means - mean64) ** 2).sum(0)) / n
@@ -102,12 +129,15 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
                                 bias).to(x.dtype)
 
 
-def convert_batchnorm(module: nn.Module) -> nn.Module:
+def convert_batchnorm(module: nn.Module, group=None) -> nn.Module:
     """Makes every ``nn.BatchNorm2d`` under ``module`` (and ``module``
-    itself, if it is one) a ``GlobalBatchNorm2d``, in place: the same
-    objects with the same parameters and buffers, so optimizers, hooks and
-    references taken before stay valid. Returns ``module``."""
+    itself, if it is one) a ``GlobalBatchNorm2d`` over the ranks of
+    ``group`` (None: the world), in place: the same objects with the same
+    parameters and buffers, so optimizers, hooks and references taken
+    before stay valid. Returns ``module``."""
     for m in module.modules():
         if type(m) is nn.BatchNorm2d:
             m.__class__ = GlobalBatchNorm2d
+        if isinstance(m, GlobalBatchNorm2d):
+            m.group = group
     return module

@@ -14,14 +14,20 @@ dataset (``shard_dataset_for_process``) in node batches, and each rank of
 the node loads and runs only its rows of that batch (the loader's
 ``shard``, dpft_tpu_torch/data/loader.py: the counterpart of
 ``make_global_batch``). So the global batch is
-``batch_size x nodes``. Gradients are averaged over ranks by
-``DistributedDataParallel``, BatchNorm statistics are taken over the
-global batch (``parallel.batchnorm``) and the step's loss, the update gate
-and the logged means are the global batch's (``all_sum``).
+``batch_size x nodes``.
 
-``create_mesh`` and the shardings of the JAX module have no counterpart:
-``computing.model_parallel`` (tensor parallelism, dpft_tpu/parallel/tp.py)
-is not ported, and ``init_distributed`` rejects it.
+The ranks of a group form a ``("data", "model")`` ``DeviceMesh`` of
+``world / mp`` x mp ranks, mp being ``computing.model_parallel`` (1 when
+unset), as the JAX trainer calls ``create_mesh(data=..., model=mp)``:
+rank ``d * mp + m`` has data index d. The ranks of one data index see the
+same rows and hold shards of one model (dpft_tpu_torch/parallel/tp.py,
+FSDP2: with mp 1 every rank holds the whole model and the step averages
+the gradients over 'data', which is data parallelism). Everything that
+spans the data-parallel ranks runs over the 'data' sub-group
+(:func:`data_group`): the global BatchNorm, the loader's shard, the
+trainer's global scalars (the loss, the update gate and the logged
+means), ``all_sum`` and ``gather_rows``. A node holds whole model groups
+(mp divides its ranks).
 """
 
 from __future__ import annotations
@@ -37,12 +43,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from torch.nn.parallel import DistributedDataParallel
-
 from dpft_tpu_torch.parallel.batchnorm import convert_batchnorm
+from dpft_tpu_torch.parallel.tp import place_tensor_parallel
 from dpft_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+# The ("data", "model") DeviceMesh of the group, made by init_distributed
+# (or by distribute, in a group that the caller started) and dropped by
+# shutdown; None without a group.
+_mesh = None
 
 
 def data_parallel_size(batch_size: int, n_devices: int,
@@ -126,14 +136,29 @@ def _rank_device(device: torch.device, index: int) -> torch.device:
     return device
 
 
-def _data_parallel_only(config: Dict[str, Any]) -> None:
-    mp = config.get("computing", {}).get("model_parallel")
-    if int(mp or 1) > 1:
+def model_parallel(config: Dict[str, Any]) -> int:
+    """``computing.model_parallel`` (1 when unset)."""
+    return int(config.get("computing", {}).get("model_parallel") or 1)
+
+
+def make_mesh(mp: int, device: torch.device) -> None:
+    """Lays the ranks of the group out as the ("data", "model") mesh of
+    world / mp x mp ranks on ``device``'s type, which ``distribute`` and
+    the 'data' collectives use (none without a group; ``init_distributed``
+    calls it). Raises where mp does not divide the world or a node's
+    ranks."""
+    global _mesh
+    _mesh = None
+    world = world_size()
+    if world % mp or local_world_size() % mp:
         raise ValueError(
-            f"computing.model_parallel={mp}: tensor parallelism "
-            "(dpft_tpu/parallel/tp.py) is not ported, on purpose (ROADMAP.md,"
-            " Queue 1, 'Not ported, on purpose'); the port runs data "
-            "parallel only")
+            f"computing.model_parallel={mp} must divide the world of "
+            f"{world} ranks and the {local_world_size()} ranks of a node")
+    if not dist.is_initialized():
+        return
+    from torch.distributed.device_mesh import init_device_mesh
+    _mesh = init_device_mesh(device.type, (world // mp, mp),
+                             mesh_dim_names=("data", "model"))
 
 
 def init_distributed(config: Dict[str, Any],
@@ -160,19 +185,29 @@ def init_distributed(config: Dict[str, Any],
       a one-node group at ``init_method``.
 
     The backend is NCCL on cards and gloo on the CPU. A failure to join
-    raises. ``computing.model_parallel`` > 1 raises: tensor parallelism is
-    not ported (ROADMAP, Queue 1: "Not ported, on purpose").
+    raises. The ranks also form the (data, model) mesh of
+    ``computing.model_parallel``; an mp that does not divide the world (or
+    a node's ranks) raises, also where no group is formed.
     """
-    _data_parallel_only(config)
-    comp = config.get("computing", {})
     device = resolve_device(device)
     if dist.is_initialized():
-        return _rank_device(device, local_rank_index())
-    if "WORLD_SIZE" in os.environ and init_method is None:
+        device = _rank_device(device, local_rank_index())
+    elif "WORLD_SIZE" in os.environ and init_method is None:
         index = int(os.environ.get("LOCAL_RANK", 0))
         device = _rank_device(device, index)
         dist.init_process_group(_backend(device), init_method="env://")
-        return device
+    else:
+        device = _join(config, device, local_rank, local_world, init_method)
+    make_mesh(model_parallel(config), device)
+    return device
+
+
+def _join(config: Dict[str, Any], device: torch.device,
+          local_rank: Optional[int], local_world: Optional[int],
+          init_method: Optional[str]) -> torch.device:
+    """The group of ``computing.multi_host`` or of ranks spawned on one
+    node (``init_distributed``); none for a single rank."""
+    comp = config.get("computing", {})
 
     local_rank = local_rank or 0
     local_world = local_world or 1
@@ -210,16 +245,20 @@ def launch(fn: Callable, config: Dict[str, Any],
     card; on a host with N > 1 cards in ``data_parallel_size(
     train.batch_size, N)`` processes (``torch.multiprocessing`` spawn)
     that meet at a file store in a temporary directory (or, with
-    ``computing.multi_host``, at the coordinator). Raises as
-    ``init_distributed`` does for ``computing.model_parallel``."""
-    _data_parallel_only(config)
+    ``computing.multi_host``, at the coordinator). With
+    ``computing.model_parallel`` mp, ``data_parallel_size(batch_size, N /
+    mp) x mp`` processes; an mp above N raises."""
+    mp = model_parallel(config)
     n = 1
     if "WORLD_SIZE" not in os.environ and \
             resolve_device(device).type == "cuda":
         cards = torch.cuda.device_count()
+        if mp > cards:
+            raise ValueError(f"computing.model_parallel={mp} exceeds the "
+                             f"{cards} cards of this host")
         if cards > 1:
-            n = data_parallel_size(
-                config.get("train", {}).get("batch_size", 1), cards,
+            n = mp * data_parallel_size(
+                config.get("train", {}).get("batch_size", 1), cards // mp,
                 require_full=bool(config.get("computing", {}).get(
                     "require_full_mesh")))
     if n == 1:
@@ -232,22 +271,41 @@ def launch(fn: Callable, config: Dict[str, Any],
 
 
 def distribute(model: torch.nn.Module) -> torch.nn.Module:
-    """``model`` with global-batch BatchNorm, wrapped in
-    ``DistributedDataParallel`` (``model`` itself without a group). Its
-    BatchNorm statistics are global already, so DDP broadcasts no buffers;
-    it looks for parameters without a gradient in every step, as some
-    have none (the first head feeds only its box centers forward)."""
+    """``model`` with global-batch BatchNorm over the 'data' ranks,
+    sharded in place over the group's (data, model) mesh
+    (``tp.place_tensor_parallel``, FSDP2: the backward reduces the
+    gradients that exist over the ranks and leaves the others None, as one
+    process does; some have none, as the first head feeds only its box
+    centers forward). ``model`` itself without a group. In a group that
+    the caller started without ``init_distributed`` the mesh is (world,
+    1)."""
     if not dist.is_initialized():
         return model
-    device = next(model.parameters()).device
-    return DistributedDataParallel(
-        convert_batchnorm(model),
-        device_ids=[device.index] if device.type == "cuda" else None,
-        broadcast_buffers=False, find_unused_parameters=True)
+    if _mesh is None:
+        make_mesh(1, next(model.parameters()).device)
+    convert_batchnorm(model, data_group())
+    return place_tensor_parallel(model, _mesh)
+
+
+@contextlib.contextmanager
+def gradient_sync(net: torch.nn.Module, sync: bool) -> Iterator[None]:
+    """The body's backward averages the gradients over ranks only if
+    ``sync`` (else they add up on each rank until a backward that does):
+    FSDP2's ``set_requires_gradient_sync``."""
+    if sync or not dist.is_initialized():
+        yield
+        return
+    net.set_requires_gradient_sync(False)
+    try:
+        yield
+    finally:
+        net.set_requires_gradient_sync(True)
 
 
 def shutdown() -> None:
-    """Leaves the process group, if any."""
+    """Leaves the process group, if any, and drops its mesh."""
+    global _mesh
+    _mesh = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -301,6 +359,22 @@ def is_main() -> bool:
     return rank() == 0
 
 
+def model_parallel_size() -> int:
+    """Ranks per model group: the 'model' size of the mesh, else 1."""
+    return _mesh["model"].size() if _mesh is not None else 1
+
+
+def data_group():
+    """The group of the ranks that share this rank's model index (None,
+    the world, where the group has no mesh yet)."""
+    return _mesh.get_group("data") if _mesh is not None else None
+
+
+def data_world_size() -> int:
+    """Data-parallel ranks: the world over the model group's size."""
+    return world_size() // model_parallel_size()
+
+
 def barrier() -> None:
     if world_size() > 1:
         dist.barrier()
@@ -317,20 +391,21 @@ def agreed_timestamp(timestamp: str) -> str:
 
 
 def all_sum(values: torch.Tensor) -> torch.Tensor:
-    """The float64 sum of ``values`` over all ranks (the values themselves
-    on a single rank)."""
+    """The float64 sum of ``values`` over the data-parallel ranks (the
+    values themselves on a single one)."""
     values = values.double()
-    if world_size() > 1:
-        dist.all_reduce(values)
+    if data_world_size() > 1:
+        dist.all_reduce(values, group=data_group())
     return values
 
 
 def gather_rows(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Every rank's rows of a batch, concatenated in rank order (the node
-    batch on a single node). All ranks take part; the tensors come back on
-    the device they went in on. gloo gathers on the host, NCCL on the
-    rank's card (a tensor on the host goes there first)."""
-    if world_size() <= 1:
+    """Every data-parallel rank's rows of a batch, concatenated in rank
+    order (the node batch on a single node). All ranks take part; the
+    tensors come back on the device they went in on. gloo gathers on the
+    host, NCCL on the rank's card (a tensor on the host goes there
+    first)."""
+    if data_world_size() <= 1:
         return tree
     via = (torch.device("cpu") if dist.get_backend() == "gloo" else
            torch.device("cuda", torch.cuda.current_device()))
@@ -338,7 +413,7 @@ def gather_rows(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     for key, value in tree.items():
         sent = value.detach().contiguous().to(via)
         parts: List[torch.Tensor] = [torch.empty_like(sent)
-                                     for _ in range(world_size())]
-        dist.all_gather(parts, sent)
+                                     for _ in range(data_world_size())]
+        dist.all_gather(parts, sent, group=data_group())
         out[key] = torch.cat(parts).to(value.device)
     return out

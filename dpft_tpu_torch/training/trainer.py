@@ -12,9 +12,12 @@ learning-rate schedule. The per-step metric runs unless
 unset.
 
 Every epoch ends with a validation pass (loss and metrics, eval mode) and
-a checkpoint ``{timestamp}_checkpoint_{epoch:04d}.pt`` written by
-``registry.save``; with ``train.save_optimizer`` the optimizer and
-schedule state go beside it (:func:`optimizer_state_path`). Scalars go to
+a checkpoint ``{timestamp}_checkpoint_{epoch:04d}.pt``; with
+``train.save_optimizer`` the optimizer and schedule state go beside it
+(:func:`optimizer_state_path`). One ``registry.CheckpointSaver`` writes
+them for the run: the epoch waits for the copy to the host only, the
+files are committed by atomic renames in the background, and the run
+waits for the last one before it returns. Scalars go to
 ``<dst>/<timestamp>/scalars.jsonl``, one JSON object per line.
 
 Dropout draws from torch's generator, seeded at the start of every epoch
@@ -23,24 +26,32 @@ uninterrupted run would have.
 
 Under data parallelism (a ``torch.distributed`` group, dpft_tpu_torch/
 parallel) each rank runs its rows of the global batch: its BatchNorm
-layers become ``GlobalBatchNorm2d`` and the model is wrapped in
-``DistributedDataParallel``, which averages the gradients over ranks. The
+layers become ``GlobalBatchNorm2d`` and the model is laid over the
+group's (data, model) mesh by FSDP2 (``parallel.distribute``), which
+averages the gradients over the 'data' ranks. The
 step's scalars are the global batch's means (each rank's means weighted by
 its real samples, ``sample_mask``), and each rank's loss is scaled by its
 share of those samples times the world size, so that the average is the
 gradient of the global batch's loss; the update gate decides on the global
 loss, so every rank runs the backward or none does. Under
 ``accumulate_steps`` the gradients are synchronized on the micro-batch
-that completes an update only (``no_sync`` before it). Only rank 0 writes
-checkpoints, optimizer state and scalars; the saved state_dict is the
-unwrapped model's, the single-process key space. Each rank draws its own
-dropout masks from the same seed, for other rows: a DP step equals the
+that completes an update only (``parallel.gradient_sync``). Only rank 0
+writes checkpoints, optimizer state and scalars; the saved state_dict is
+the unwrapped model's, the single-process key space. Each rank draws its
+own dropout masks from the same seed, for other rows: a DP step equals the
 single-process step on the same global batch only without dropout.
+
+Under ``computing.model_parallel`` (a (data, model) mesh) the model and
+AdamW's moments are sharded over the 'model' ranks
+(dpft_tpu_torch/parallel/tp.py), which see the same rows: the data-
+parallel ranks above are the 'data' sub-group. The optimizer is built on
+the sharded parameters; its saved state and the checkpoint are gathered
+whole to rank 0 in the single-process form, and a saved state loads into
+the sharded optimizer.
 """
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import json
 import os
@@ -53,6 +64,7 @@ from dpft_tpu_torch import parallel
 from dpft_tpu_torch.evaluation.evaluator import to_device
 from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
+from dpft_tpu_torch.models.registry import optimizer_state_path
 from dpft_tpu_torch.training.loss import Loss
 from dpft_tpu_torch.training.optimizer import (accumulate_steps,
                                                build_optimizer)
@@ -67,11 +79,6 @@ def now_timestamp() -> str:
 def checkpoint_path(dst: str, timestamp: str, epoch: int) -> str:
     return osp.join(dst, timestamp, "checkpoints",
                     f"{timestamp}_checkpoint_{epoch:04d}.pt")
-
-
-def optimizer_state_path(checkpoint: str) -> str:
-    """Where the optimizer state of a checkpoint lies (save_optimizer)."""
-    return checkpoint[:-len(".pt")] + ".optim.pt"
 
 
 def load_optimizer_state(checkpoint: str) -> Optional[Dict[str, Any]]:
@@ -151,7 +158,7 @@ class CentralizedTrainer:
                                                 losses.values()),
                               *(torch.as_tensor(v, device=total.device)
                                 for v in metrics.values())])
-        if parallel.world_size() == 1:
+        if parallel.data_world_size() == 1:
             return dict(zip(names, values.tolist())), 1.0
         mask = targets.get("sample_mask")
         count = (mask.sum() if mask is not None
@@ -170,7 +177,7 @@ class CentralizedTrainer:
         values = sums[:-1] / torch.where(mean, total_count, 1.0)
         share = (count / total_count).item() if loss_mean else 1.0
         return (dict(zip(names, values.tolist())),
-                share * parallel.world_size())
+                share * parallel.data_world_size())
 
     def train_step(self, model: torch.nn.Module,
                    batch: Dict[str, torch.Tensor],
@@ -179,8 +186,8 @@ class CentralizedTrainer:
         """Forward, matching, loss and (if the loss is above 0) the
         backward of ``loss * scale``; gradients add up in ``.grad``.
         Returns the step's scalars. Under data parallelism ``model`` is
-        the ``DistributedDataParallel`` wrapper, and loss and gate are the
-        global batch's."""
+        the sharded model (``parallel.distribute``), and loss and gate
+        are the global batch's."""
         model.train()
         out = model(batch)
         indices = (self.loss_fn.match(out, targets)
@@ -218,17 +225,19 @@ class CentralizedTrainer:
         seed = int(self.config.get("computing", {}).get("seed") or 0)
         k = accumulate_steps(self.config)
         steps_per_epoch = max(len(train_loader), 1)
+        net = parallel.distribute(model)  # shards ``model``'s parameters
+        main = parallel.is_main()
         optimizer = self.optimizer_factory(model.parameters())
         scheduler = torch.optim.lr_scheduler.LambdaLR(
             optimizer, as_step_schedule(self.scheduler_factor,
                                         steps_per_epoch, every_k=k))
         if optimizer_state is not None:
-            optimizer.load_state_dict(optimizer_state["optimizer"])
+            parallel.load_optimizer_state_dict(
+                model, optimizer, optimizer_state["optimizer"])
             scheduler.load_state_dict(optimizer_state["scheduler"])
         optimizer.zero_grad(set_to_none=True)
-
-        net = parallel.distribute(model)
-        main = parallel.is_main()
+        saver = registry.CheckpointSaver()
+        save_optimizer = self.config.get("train", {}).get("save_optimizer")
 
         log = _Scalars(None)
         if dst is not None and main:
@@ -247,8 +256,7 @@ class CentralizedTrainer:
                 lr = optimizer.param_groups[0]["lr"]  # of this step's update
                 # Gradients are averaged over ranks on the micro-batch that
                 # completes an update only.
-                sync = net is model or accepted == k - 1
-                with contextlib.nullcontext() if sync else net.no_sync():
+                with parallel.gradient_sync(net, accepted == k - 1):
                     scalars = self.train_step(net, to_device(batch, device),
                                               to_device(targets, device),
                                               scale=1.0 / k)
@@ -279,14 +287,18 @@ class CentralizedTrainer:
                         log.write("val", "epoch", epoch, result)
 
             if dst is not None:
+                # Gathered on every rank of a sharded model, kept by rank 0.
+                state = parallel.model_state_dict(model)
+                opt = (parallel.optimizer_state_dict(model, optimizer)
+                       if save_optimizer else None)
                 if main:
-                    path = checkpoint_path(dst, timestamp, epoch)
-                    registry.save(model, self.config, path)
-                    if self.config.get("train", {}).get("save_optimizer"):
-                        torch.save({"optimizer": optimizer.state_dict(),
-                                    "scheduler": scheduler.state_dict()},
-                                   optimizer_state_path(path))
+                    saver.save(state, self.config,
+                               checkpoint_path(dst, timestamp, epoch),
+                               optimizer_state=None if opt is None else {
+                                   "optimizer": opt,
+                                   "scheduler": scheduler.state_dict()})
                 parallel.barrier()
+        saver.wait()
         model.eval()
         return {"timestamp": timestamp, "history": history,
                 "result": result, "optimizer": optimizer}

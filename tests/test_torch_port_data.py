@@ -230,3 +230,21 @@ def test_example_batches_equal_the_originals():
                        _example_batch(config, B=2, cam_hw=(32, 40), seed=3))
     assert_trees_equal(example_targets(config, B=2, seed=4),
                        _example_targets(config, B=2, seed=4))
+
+
+@pytest.mark.parametrize("copy,original", [
+    ("dpft_tpu_torch/csrc/radar_reduce_host.cc", "native/radar_reduce.cc"),
+    ("dpft_tpu_torch/utils/geometry.py", "dpft_tpu/utils/geometry.py"),
+    ("dpft_tpu_torch/utils/project.py", "dpft_tpu/utils/project.py"),
+    ("dpft_tpu_torch/utils/data.py", "dpft_tpu/utils/data.py"),
+    ("dpft_tpu_torch/utils/visu.py", "dpft_tpu/utils/visu.py"),
+    ("dpft_tpu_torch/ops/nsga2.py", "dpft_tpu/ops/nsga2.py"),
+])
+def test_copy_has_not_drifted(copy, original):
+    """Copies whose text is the original's but for the package name in
+    their imports."""
+    with open(osp.join(ROOT, copy)) as f:
+        got = f.read()
+    with open(osp.join(ROOT, original)) as f:
+        want = f.read()
+    assert got.replace("dpft_tpu_torch.", "dpft_tpu.") == want

@@ -87,7 +87,9 @@ def test_port_never_imports_jax():
                  "training.scheduler", "evaluation.metric", "ops.boxes",
                  "ops.iou", "ops.hungarian", "prepare",
                  "data.kradar.processor", "ops.radar_reduce", "data.loader",
-                 "utils.config", "utils.device"):
+                 "utils.config", "utils.device", "parallel.tp",
+                 "ops.radar_reduce_native", "ops.nsga2", "utils.geometry",
+                 "utils.project", "utils.data", "utils.visu"):
         assert f"dpft_tpu_torch.{name}" in report["modules"], name
     assert report["leaked"] == []
 

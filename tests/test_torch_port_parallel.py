@@ -486,11 +486,15 @@ def test_two_rank_evaluate_writes_what_one_process_writes(kradar, tmp_path):
     assert not mismatch and not errors, (mismatch, errors)
 
 
-# --- 7. Tensor parallelism is not ported --------------------------------
+# --- 7. Tensor parallelism needs its ranks ------------------------------
 
 
 @pytest.mark.parametrize("entry", ["init_distributed", "train", "evaluate"])
 def test_model_parallel_raises(entry, tmp_path):
+    """A model_parallel of 2 on one process (no group) raises in
+    init_distributed and train; evaluate ignores the key, as the JAX
+    evaluator does, and gets as far as the dataset (here a missing one).
+    The mesh itself: test_torch_port_tp.py."""
     config = {"computing": {"seed": 0, "model_parallel": 2},
               "train": {"batch_size": 2}}
     cfg = str(tmp_path / "config.json")
@@ -501,6 +505,10 @@ def test_model_parallel_raises(entry, tmp_path):
                                     device="cpu"),
         "evaluate": lambda: evaluate.main("unused", cfg, "unused",
                                           str(tmp_path), device="cpu")}
-    with pytest.raises(ValueError, match="not ported, on purpose"):
-        calls[entry]()
+    if entry == "evaluate":
+        with pytest.raises(KeyError, match="dataset"):
+            calls[entry]()
+    else:
+        with pytest.raises(ValueError, match="model_parallel=2 must divide"):
+            calls[entry]()
     assert parallel.world_size() == 1

@@ -5,7 +5,7 @@ fusion iterations, dropout 0, four times make_batch's spatial size) at its
 seed: weights from JAX's random variables at seed 1 through
 state_dict_from_flax, four distinct rows drawn from input seed 1. Two
 ranks each run two of the rows through ``parallel.distribute`` (global-
-batch BatchNorm, DistributedDataParallel) and
+batch BatchNorm, FSDP2 on a (2, 1) mesh) and
 ``CentralizedTrainer.train_step``; both ranks must hold the same scalars
 and bit-equal gradients afterwards.
 

@@ -115,10 +115,13 @@ def test_prepare_device_cpu_overrides_the_device():
 
 
 def test_prepare_device_native_is_not_ported():
+    """The name predates the port of the host reduction: ``"native"`` now
+    builds a processor that needs no device, whatever ``device`` says
+    (test_torch_port_radar_native.py holds its planes)."""
     config = base_config()
+    config["computing"]["device"] = "cuda"
     config["data"]["prepare_device"] = "native"
-    with pytest.raises(NotImplementedError, match="native"):
-        prepare_dataset("kradar", config)
+    assert prepare_dataset("kradar", config).device is None
 
 
 def test_unknown_dataset_raises():

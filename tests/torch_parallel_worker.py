@@ -72,6 +72,22 @@ def save(obj, tmp, name):
     torch.save(obj, osp.join(str(tmp), name))
 
 
+def whole(t):
+    """A tensor of a model that ``parallel.distribute`` sharded (a
+    DTensor), gathered whole; any other tensor as it is. Every rank calls
+    it in the same order."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def model_state_dict(model):
+    """``model``'s state_dict with whole tensors (``whole``)."""
+    from dpft_tpu_torch.parallel.tp import model_state_dict as whole_state
+
+    return whole_state(model)
+
+
 def rows(tree, rank, world):
     """This rank's rows of every tensor of ``tree``."""
     per = next(iter(tree.values())).shape[0] // world
@@ -105,7 +121,7 @@ def batchnorm_rank(rank, world, tmp):
 def step_rank(rank, world, tmp):
     """One train step of the model of every job in ``step_in.pt`` on this
     rank's rows of the job's global batch, through ``distribute`` (global
-    BatchNorm, DDP): the global scalars, the all-reduced gradients (of the
+    BatchNorm, FSDP2): the global scalars, the all-reduced gradients (of the
     parameters that get one), the state after the step and the
     BatchNorm modules' types."""
     from dpft_tpu_torch.models import registry
@@ -122,8 +138,8 @@ def step_rank(rank, world, tmp):
             distribute(model), rows(job["batch"], rank, world),
             rows(job["targets"], rank, world))
         out.append({
-            "scalars": scalars, "state": model.state_dict(),
-            "grads": {k: p.grad for k, p in model.named_parameters()
+            "scalars": scalars, "state": model_state_dict(model),
+            "grads": {k: whole(p.grad) for k, p in model.named_parameters()
                       if p.grad is not None},
             "params": [k for k, _ in model.named_parameters()],
             "types": sorted({type(m).__name__ for m in model.modules()
@@ -158,7 +174,7 @@ def host_rank(rank, world, tmp):
         model, load_dataset(train, config, drop_last=True),
         load_dataset(val, config, shuffle=False, pad_last=True),
         timestamp=timestamp, dst=osp.join(tmp, "log"))
-    save({"state": model.state_dict(), "history": result["history"],
+    save({"state": model_state_dict(model), "history": result["history"],
           "result": result["result"], "timestamp": timestamp},
          tmp, f"host_out{rank}.pt")
 
@@ -195,7 +211,7 @@ def trainer_rank(rank, world, tmp):
            for b, t in job["val"]]
     result = CentralizedTrainer.from_config(job["config"])(
         model, train, val, dst=job.get("dst"))
-    save({"state": model.state_dict(), "history": result["history"],
+    save({"state": model_state_dict(model), "history": result["history"],
           "result": result["result"], "updates": _updates(result)},
          tmp, f"trainer_out{rank}.pt")
 
@@ -270,3 +286,103 @@ class Toy(torch.nn.Module):
         x = batch["x"].transpose(1, 2)[..., None].contiguous()  # (B, 3, 5, 1)
         x = self.bn(x)[..., 0].transpose(1, 2)
         return {"center": self.dense(x)}
+
+
+def remat_step(config, state, batch, targets, wrap=lambda model: model):
+    """One train step and one AdamW update of the model of ``config`` from
+    ``state`` (``wrap`` puts it under data parallelism): the scalars, the
+    gradients, parameters and buffers after the update, the state_dict's
+    keys and the BatchNorm modules' types."""
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.training.trainer import CentralizedTrainer
+
+    model = registry.build("dprt", config, device="cpu")
+    model.load_state_dict(state, strict=True)
+    trainer = CentralizedTrainer.from_config(config)
+    net = wrap(model)
+    optimizer = trainer.optimizer_factory(model.parameters())
+    scalars = trainer.train_step(net, batch, targets)
+    grads = {k: whole(p.grad).clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    optimizer.step()
+    return {"scalars": scalars, "grads": grads,
+            "params": {k: whole(p.detach()).clone()
+                       for k, p in model.named_parameters()},
+            "buffers": {k: b.clone() for k, b in model.named_buffers()},
+            "keys": list(model.state_dict()),
+            "types": sorted({type(m).__name__ for m in model.modules()
+                             if isinstance(m, torch.nn.BatchNorm2d)})}
+
+
+def remat_rank(rank, world, tmp):
+    """``remat_step`` without and with ``computing.remat`` on this rank's
+    rows of the job in ``remat_in.pt``, through ``parallel.distribute``."""
+    import copy
+
+    from dpft_tpu_torch.parallel import distribute
+
+    job = load(tmp, "remat_in.pt")
+    out = []
+    for on in (False, True):
+        config = copy.deepcopy(job["config"])
+        config["computing"]["remat"] = on
+        out.append(remat_step(config, job["state"],
+                              rows(job["batch"], rank, world),
+                              rows(job["targets"], rank, world),
+                              wrap=distribute))
+    save(out, tmp, f"remat_out{rank}.pt")
+
+
+def train_run(run, tmp, rows_of=lambda tree: tree):
+    """``CentralizedTrainer.train`` of one run of a tensor-parallel job
+    (``tp_in*.pt``), in float64: the model from ``run['state']`` or, to
+    resume, from the checkpoint ``run['resume']`` under ``tmp`` with its
+    optimizer state; ``rows_of`` picks this rank's rows of each batch.
+    Writes the checkpoints under ``tmp/run['dst']`` (rank 0) and returns
+    the history and the last validation means."""
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.training import trainer as trainer_lib
+
+    config = run["config"]
+    model = registry.build("dprt", config, device="cpu").double()
+    state, optimizer_state, start = run.get("state"), None, 0
+    if "resume" in run:
+        path = osp.join(tmp, run["resume"])
+        state = torch.load(path, weights_only=True)
+        optimizer_state = trainer_lib.load_optimizer_state(path)
+        start = registry.parse_checkpoint_name(path)[0] + 1
+    model.load_state_dict(state, strict=True)
+    train = [(rows_of(b), rows_of(t)) for b, t in run["train"]]
+    val = [(rows_of(b), rows_of(t)) for b, t in run["val"]]
+    result = trainer_lib.CentralizedTrainer.from_config(config)(
+        model, train, val, start_epoch=start, timestamp="ts",
+        dst=osp.join(tmp, run["dst"]), optimizer_state=optimizer_state)
+    return {"history": result["history"], "result": result["result"]}
+
+
+def tp_rank(rank, world, tmp):
+    """The runs of ``tp_in{world}.pt`` on a (data, model) mesh of
+    ``world / mp`` x mp gloo ranks, in order (a run may resume from an
+    earlier run's checkpoint); each rank trains on its data index's rows.
+    First every ``model_parallel`` of ``bad_mp`` must raise."""
+    import torch.distributed as dist
+
+    from dpft_tpu_torch import parallel
+
+    job = load(tmp, f"tp_in{world}.pt")
+    for bad in job["bad_mp"]:
+        try:
+            parallel.init_distributed(
+                {"computing": {"model_parallel": bad}}, "cpu")
+        except ValueError:
+            continue
+        raise AssertionError(f"model_parallel={bad} on {world} ranks")
+    mp = job["mp"]
+    parallel.init_distributed({"computing": {"model_parallel": mp}}, "cpu")
+    assert parallel.data_world_size() == world // mp
+    out = {}
+    for name, run in job["runs"].items():
+        out[name] = train_run(run, tmp, lambda tree: rows(
+            tree, rank // mp, world // mp))
+        dist.barrier()  # rank 0 has committed the run's checkpoints
+    save(out, tmp, f"tp_out{world}_{rank}.pt")
