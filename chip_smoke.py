@@ -252,6 +252,23 @@ not 0:
    10 log10, taken in float64 from the cube, lie within ``TIE_ULPS``
    float32 ulps; each such gap is printed), ms per cube on the host with
    its CPU's name.
+22. Bench (last, ``phase_bench``): ``python -m dpft_tpu_torch.bench``
+   through its real entry, each run in a fresh process with BENCH_REPS 10
+   and BENCH_WARMUP 3: the default run (inference, B=4, bfloat16), train
+   at B=4 in float32 with BENCH_FLOPS=1 (3 steps after 2), prepare on the
+   default device (the four frame ids of tests/kradar_fixture.py at
+   K-Radar's shapes), inference at B=1 in float32 as the cell ``1:f32`` of
+   ``python -m dpft_tpu_torch.bench_scaling`` (which passes the bench's
+   stderr on); then BENCH_HOIST=1. Each run exits 0 with a last
+   line of exactly the port's keys for its mode (``port_bench_keys``: the
+   root bench.py's, read from its source with ``ast``, with the port's
+   changes) naming this card and its power limit; the inference FLOPs
+   equal the serve path's count per B=1 forward times B, the train step's
+   lie within 2-4 times the forward's (the ratio printed); prepare reports
+   every frame of its tree; TF32 is off at the end of every run and the
+   kernels it launched (its ``bench:`` line on stderr) are its mode's;
+   BENCH_HOIST=1 exits 1 with an error line. Each run's last line is
+   printed whole.
 
 The kernel report gives, for every kernel, its launches on every main
 path (serve, export, train, eval_dp and train_dp (rank 0's: 9 eval
@@ -648,11 +665,11 @@ def _time_forwards(config, model, label):
 
 def phase_launch_counts(config, models):
     """Kernels, copies and memsets that one forward puts on the card, for
-    each of ``models`` (label -> model), counted by torch.profiler. It runs
-    after every timed phase: once the profiler has been used, its tracing
-    stays attached and every later launch costs the host more."""
-    from torch.profiler import ProfilerActivity, profile
-
+    each of ``models`` (label -> model), counted by torch.profiler
+    (``profiling.device_activity``). It runs after every timed phase: once
+    the profiler has been used, its tracing stays attached and every later
+    launch costs the host more."""
+    from dpft_tpu_torch.utils import profiling
     from dpft_tpu_torch.utils.example import example_batch
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -663,16 +680,10 @@ def phase_launch_counts(config, models):
                 model.eval()
                 model.compute_dtype = dtype
                 with torch.inference_mode():
-                    model(batch)
-                    torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        model(batch)
-                        torch.cuda.synchronize()
+                    n = profiling.device_activity(lambda: model(batch),
+                                                  device="cuda").launches
                 model.compute_dtype = torch.float32
-                n = sum(e.device_type == torch.autograd.DeviceType.CUDA
-                        for e in prof.events())
-                counts[label] = n or "not measured"
+                counts[label] = int(n) or "not measured"
             print(f"[launches] B={B} {str(dtype)[6:]}: device launches per "
                   f"forward {counts}")
 
@@ -720,37 +731,6 @@ def phase_kernel_times(view_shapes):
                       f"launch: {', '.join(sorted(cells)) or 'not measured'}")
 
 
-def _device_us(fn, reps=10):
-    """Time of one call of ``fn`` on the card in us by torch.profiler (mean
-    of ``reps`` calls): how long at least one kernel, fill or copy that it
-    puts on the card was running (work on two streams at once counts once),
-    and each one's own time by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    names, spans = {}, []
-    for event in prof.events():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        span = (event.time_range.start, event.time_range.end)
-        spans.append(span)
-        key = event.name
-        name = (key[key.find("msda"):] if "msda" in key
-                else key).split("<")[0].split("(")[0][:40]
-        names[name] = names.get(name, 0.0) + (span[1] - span[0]) / reps
-    busy, end = 0.0, -math.inf
-    for start, stop in sorted(spans):
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    return busy / reps, names
-
-
 def phase_msda_call_times(view_shapes):
     """One MSDA call of each view through ``msda_fwd`` and ``msda_bwd`` at
     B=1 and B=4: ms by CUDA events and the card's own time by the profiler,
@@ -759,8 +739,10 @@ def phase_msda_call_times(view_shapes):
     output written once, or 10 operations per corner and channel; backward:
     those and grad_out read once, d_value written whole, d_loc and d_att
     written once, or 30 operations per corner and channel). Events first:
-    the profiler runs after every timed phase, as ``phase_kernel_times``."""
+    the profiler runs after every timed phase, as ``phase_kernel_times``.
+    The profiler's side is ``profiling.device_activity`` over 10 calls."""
     from dpft_tpu_torch.ops import deform_attn as da
+    from dpft_tpu_torch.utils import profiling
 
     cells = {}
     for view, shapes in view_shapes.items():
@@ -792,10 +774,12 @@ def phase_msda_call_times(view_shapes):
         parts = []
         for (what, dtype), fn in calls.items():
             with torch.inference_mode():
-                us, names = _device_us(fn)
-            split = ", ".join(f"{n} {t:.1f}" for n, t in sorted(names.items()))
+                act = profiling.device_activity(fn, reps=10, device="cuda")
+            split = ", ".join(f"{n} {1e3 * t:.1f}"
+                              for n, t in sorted(act.kernel_ms.items()))
             parts.append(f"{what} {str(dtype)[6:]} {events[what, dtype]:.4f} "
-                         f"ms by events, {us:.1f} us on the card ({split})")
+                         f"ms by events, {1e3 * act.busy_ms:.1f} us on the "
+                         f"card ({split})")
         (f_ms, f_by), (b_ms, b_by) = bounds
         print(f"[msda calls] {view} B={B}: {'; '.join(parts)}; bound (f32) "
               f"fwd {1e3 * f_ms:.2f} us ({f_by}), bwd {1e3 * b_ms:.2f} us "
@@ -2889,18 +2873,6 @@ def phase_trained_steps(config, model, mm_model):
         _compare_steps(f"updated weights, {what}", against, a, b, tol=tol)
 
 
-def _power_cube(shape, seed):
-    """Strictly positive float32 powers (75 to 125 dB) from a numpy seed:
-    uniform powers times a gain per doppler bin that spans 10 dB, as the
-    doppler bins of a real cube differ. Without the gain the inner maxima
-    would be nearly equal in every doppler bin, and their variance over
-    doppler (channel 5) would lie below the tolerance that checks it."""
-    rng = np.random.default_rng(seed)
-    power = 1e8 + rng.random(shape, dtype=np.float32) * np.float32(1e12 - 1e8)
-    gain = 10.0 ** rng.uniform(-0.5, 0.5, size=(shape[0], 1, 1, 1))
-    return (power * gain.astype(np.float32)).astype(np.float32)
-
-
 def _check_plane(what, got, want, exact_lookup=True):
     """Holds a (.., 6) plane against its reference, channel by channel.
     Returns the max abs err, the number of lookups that differ, and per
@@ -2993,10 +2965,11 @@ def _radar_bounds(shape):
 def phase_radar_vs_plain():
     """Returns the kernel report entries of both radar kernels."""
     from dpft_tpu_torch.ops import radar_reduce as rr
+    from dpft_tpu_torch.utils.example import power_cube
 
     max_err = {"ra": 0.0, "ea": 0.0}
     for shape in RADAR_SHAPES:
-        host = _power_cube(shape, seed=0)
+        host = power_cube(shape, seed=0)
         contiguous = torch.from_numpy(host).cuda()
         # The kernels' own layout, as loadmat gives it: doppler fastest.
         cube = rr.to_doppler_fastest(contiguous)
@@ -3137,8 +3110,9 @@ def phase_radar_kernel_times():
     from torch.profiler import ProfilerActivity, profile
 
     from dpft_tpu_torch.ops import radar_reduce as rr
+    from dpft_tpu_torch.utils.example import power_cube
 
-    contiguous = torch.from_numpy(_power_cube(KRADAR_CUBE, seed=0)).cuda()
+    contiguous = torch.from_numpy(power_cube(KRADAR_CUBE, seed=0)).cuda()
     cube64 = rr.to_doppler_fastest(contiguous).double()
 
     def both():
@@ -3167,68 +3141,6 @@ def phase_radar_kernel_times():
           f"{', '.join(sorted(cells)) or 'not measured'}")
 
 
-def _write_raw_kradar(root):
-    """A raw K-Radar tree of the frames of FRAME_IDS at K-Radar's shapes,
-    from seeds: label and calibration txt, a 720 x 2560 stereo PNG, a
-    float64 (64, 256, 37, 107) ``arrDREA`` .mat, a 128 x 1024 and a
-    64 x 1024 point cloud per frame."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import cv2
-    from scipy.io import savemat
-
-    from dpft_tpu_torch.data.pcd import write_pcd
-
-    src = os.path.join(root, "raw")
-    base = os.path.join(src, SEQUENCE)
-    for sub in ("info_label_v2", "info_calib", "cam-front", "radar_tesseract",
-                "os1-128", "os2-64"):
-        os.makedirs(os.path.join(base, sub))
-    with open(os.path.join(base, "description.txt"), "w") as f:
-        f.write("urban,day,normal")
-    with open(os.path.join(base, "info_calib", "calib_camera_lidar.txt"),
-              "w") as f:
-        f.write("header\n560.0,0.0,640.0,0.0,0.0,560.0,360.0,0.0,0.0,0.0,1.0,"
-                "0.0")
-    with open(os.path.join(base, "info_calib", "calib_radar_lidar.txt"),
-              "w") as f:
-        f.write("header\n0,2.54,0.3")  # frame difference, dx, dy
-
-    def write_frame(item):
-        k, sid = item
-        rng = np.random.default_rng(100 + k)
-        idx = sid.split("_")[0]
-        with open(os.path.join(base, "info_label_v2", f"{sid}.txt"), "w") as f:
-            f.write(f"timestamp={idx}_{idx}_{idx}_{idx}_{idx}\n"
-                    "*, 0, Sedan, 20.0, 1.0, 0.5, 10.0, 2.0, 1.0, 0.8\n"
-                    "*, 1, Sedan, 40.0, -2.0, 0.2, -5.0, 2.2, 0.9, 0.7\n"
-                    "*, 2, Bus or Truck, 30.0, 3.0, 0.5, 0.0, 4.0, 1.5, 1.5\n")
-        stereo = rng.integers(0, 255, size=(720, 2560, 3), dtype=np.uint8)
-        if not cv2.imwrite(os.path.join(base, "cam-front",
-                                        f"cam-front_{idx}.png"), stereo):
-            raise AssertionError("cv2 could not write the stereo PNG")
-        savemat(os.path.join(base, "radar_tesseract", f"tesseract_{idx}.mat"),
-                {"arrDREA": _power_cube(KRADAR_CUBE, 200 + k).astype(
-                    np.float64)})
-        for name, rings in (("os1-128", 128), ("os2-64", 64)):
-            n = rings * 1024
-            write_pcd(os.path.join(base, name, f"{name}_{idx}.pcd"), {
-                "x": rng.uniform(0.5, 60, n).astype(np.float32),
-                "y": rng.uniform(-10, 10, n).astype(np.float32),
-                "z": rng.uniform(-2, 4, n).astype(np.float32),
-                "intensity": rng.uniform(0, 255, n).astype(np.float32),
-                "t": rng.integers(0, 1_000_000, n).astype(np.uint32),
-                "reflectivity": rng.integers(0, 65535, n).astype(np.uint16),
-                "ring": rng.integers(0, rings, n).astype(np.uint8),
-                "ambient": rng.integers(0, 65535, n).astype(np.uint16),
-                "range": rng.integers(0, 200_000, n).astype(np.uint32)})
-
-    ids = [sid for split in FRAME_IDS.values() for sid in split]
-    with ThreadPoolExecutor(max_workers=5) as pool:
-        list(pool.map(write_frame, enumerate(ids)))
-    return src
-
-
 def _host_s(fn):
     """(result, seconds) of ``fn`` on the host clock, the card drained."""
     torch.cuda.synchronize()
@@ -3248,10 +3160,12 @@ def phase_prepare(config_path, config, model):
     from dpft_tpu_torch.evaluation.evaluator import to_device
     from dpft_tpu_torch.models import registry
     from dpft_tpu_torch.ops import radar_reduce as rr
+    from dpft_tpu_torch.utils.example import write_raw_kradar
 
     root = tempfile.mkdtemp(prefix="dpft_prepare_")
     try:
-        src, write_s = _host_s(lambda: _write_raw_kradar(root))
+        src, write_s = _host_s(lambda: write_raw_kradar(
+            root, [sid for ids in FRAME_IDS.values() for sid in ids]))
         dst = os.path.join(root, "processed")
         n_frames = sum(map(len, FRAME_IDS.values()))
         print(f"[prepare] wrote a raw tree of {n_frames} frames at "
@@ -4158,8 +4072,9 @@ def phase_native_radar():
     from dpft_tpu_torch.ops import radar_reduce as rr
     from dpft_tpu_torch.ops.radar_reduce_native import \
         reduce_tesseract_native
+    from dpft_tpu_torch.utils.example import power_cube
 
-    cube = _power_cube(KRADAR_CUBE, seed=31)
+    cube = power_cube(KRADAR_CUBE, seed=31)
     want = [p.cpu() for p in rr.reduce_tesseract(torch.from_numpy(cube)
                                                   .cuda())]
     got, build_s = _host_s(lambda: reduce_tesseract_native(cube))
@@ -4308,6 +4223,175 @@ def _bev_test_classes(config, src, checkpoint):
     return boxes, present
 
 
+# The port's bench line against the root bench.py's, mode by mode: these
+# keys go, ``mfu`` and ``peak_tflops`` take the place of
+# ``mfu_vs_bf16_peak``, and the card and its activity come in.
+BENCH_DROPPED = {"readback_rtt_ms", "hbm_static_gb", "hbm_static",
+                 "mfu_vs_bf16_peak"}
+BENCH_ADDED = {"device", "power_limit_w", "launches_per_call",
+               "device_busy_share", "device_ms_per_call"}
+# phase_bench's runs of ``python -m dpft_tpu_torch.bench`` (label, env), and
+# the cell of ``bench_scaling`` that is its inference run at B=1 in float32
+# (one process fewer than a run of its own: the phase has 150 s).
+BENCH_RUNS = (
+    ("inference B=4 bf16 (the default)", {}),
+    ("train B=4 f32", {"BENCH_MODE": "train", "BENCH_DTYPE": "float32",
+                       "BENCH_FLOPS": "1", "BENCH_REPS": "3",
+                       "BENCH_WARMUP": "2"}),
+    ("prepare", {"BENCH_MODE": "prepare"}))
+BENCH_SCALING_CELL = ("inference", "1:f32")
+
+
+def jax_bench_keys(mode):
+    """The keys of the root bench.py's last line in ``mode``, read from its
+    source with ``ast`` (it imports JAX): the dict literals returned or
+    assigned to ``result`` in ``bench_<mode>`` and the keys assigned to
+    ``result[...]``."""
+    import ast
+
+    with open(os.path.join(ROOT, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef)
+              and node.name == f"bench_{mode}")
+    keys = set()
+    for node in ast.walk(fn):
+        if isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+            keys |= {t.slice.value for t in node.targets
+                     if isinstance(t, ast.Subscript)
+                     and isinstance(t.value, ast.Name)
+                     and t.value.id == "result"
+                     and isinstance(t.slice, ast.Constant)}
+            if "result" not in names:
+                continue
+        elif not isinstance(node, ast.Return):
+            continue
+        if isinstance(node.value, ast.Dict):
+            keys |= {k.value for k in node.value.keys
+                     if isinstance(k, ast.Constant)}
+    return keys
+
+
+def port_bench_keys(mode):
+    """The keys the port's bench prints in ``mode``."""
+    jax = jax_bench_keys(mode)
+    keys = (jax - BENCH_DROPPED) | BENCH_ADDED
+    if "mfu_vs_bf16_peak" in jax:
+        keys |= {"mfu", "peak_tflops"}
+    return keys
+
+
+def _bench_process(args, env, timeout=600):
+    """(returncode, last stdout line parsed (None if it is no JSON), the
+    ``bench:`` line of stderr parsed (None if none), seconds) of a fresh
+    process from the repository's root."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT,
+                          env=dict(os.environ, **env), capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        last = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        last = None
+    diag = [json.loads(line[len("bench: "):])
+            for line in proc.stderr.splitlines() if line.startswith("bench: ")]
+    if proc.returncode and last is None:
+        print(proc.stderr[-3000:], file=sys.stderr)
+    return proc.returncode, last, (diag or [None])[-1], seconds
+
+
+def _check_bench_run(label, mode, run, card, limit_w, flops):
+    """Holds one bench run, ``run`` = (returncode, last line, ``bench:``
+    line, seconds), to ``phase_bench``'s checks; returns its last line."""
+    from dpft_tpu_torch.bench import PREPARE_FRAMES
+
+    rc, result, diag, seconds = run
+    if rc != 0 or result is None or diag is None:
+        raise AssertionError(f"bench {label}: exit {rc}, last line {result}")
+    keys = port_bench_keys(mode)
+    if set(result) != keys:
+        raise AssertionError(f"bench {label}: keys {sorted(result)}; "
+                             f"expected {sorted(keys)}")
+    if result["device"] != card or result["power_limit_w"] != limit_w:
+        raise AssertionError(f"bench {label}: device {result['device']!r} "
+                             f"at {result['power_limit_w']} W, the card is "
+                             f"{card!r} at {limit_w} W")
+    kernels = {"inference": {"msda_fwd"}, "train": {"msda_fwd", "msda_bwd"},
+               "prepare": {"radar_reduce_ra", "radar_reduce_ea"}}[mode]
+    launched = {k for k, n in diag["kernel_launches"].items() if n}
+    if launched != kernels or any(diag["tf32"].values()):
+        raise AssertionError(f"bench {label}: {diag}")
+    note = ""
+    if mode == "inference" and \
+            result["forward_flops"] != flops * result["batch"]:
+        raise AssertionError(f"bench {label}: forward_flops "
+                             f"{result['forward_flops']}, the serve path's "
+                             f"{flops} x {result['batch']}")
+    if mode == "train":
+        ratio = result["grad_step_flops"] / (flops * result["batch"])
+        if not 2 <= ratio <= 4:
+            raise AssertionError(f"bench {label}: grad_step_flops "
+                                 f"{result['grad_step_flops']}, {ratio} "
+                                 "times the forward's")
+        note = f"; grad_step_flops / forward_flops = {ratio:.4f}"
+    if mode == "prepare" and result["frames"] != len(PREPARE_FRAMES):
+        raise AssertionError(f"bench {label}: {result['frames']} frames of "
+                             f"{len(PREPARE_FRAMES)}")
+    print(f"[bench] {label}: exit 0 in {seconds:.1f} s; kernel launches "
+          f"{diag['kernel_launches']}; TF32 off{note}")
+    print(f"[bench]   {json.dumps(result)}")
+    return result
+
+
+def phase_bench(flops):
+    """``python -m dpft_tpu_torch.bench`` through its real entry, in fresh
+    processes with few repetitions (``BENCH_RUNS``, and
+    ``BENCH_SCALING_CELL`` through ``python -m
+    dpft_tpu_torch.bench_scaling``), then ``BENCH_HOIST=1``. Each run must
+    exit 0 with a last line of exactly the port's keys for its mode
+    (``port_bench_keys``) naming this card and its power limit; the
+    inference FLOPs must be ``flops`` (the serve path's count per B=1
+    forward) times B, the train step's between 2 and 4 times the forward's
+    at its B; prepare must report every frame of its tree; TF32 must be off
+    at the end of every run; the kernels launched (the ``bench:`` line of
+    stderr) must be those of the mode. ``BENCH_HOIST=1`` must exit 1 with
+    an error line. Returns every run's last line by label."""
+    card = torch.cuda.get_device_name(0)
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    limit_w = float(smi.rsplit(",", 1)[1].split()[0])
+    base = {"BENCH_REPS": "10", "BENCH_WARMUP": "3"}
+    module = ("-m", "dpft_tpu_torch.bench")
+    results = {}
+    for label, env in BENCH_RUNS:
+        env = {**base, **env}
+        mode = env.get("BENCH_MODE", "inference")
+        results[label] = _check_bench_run(
+            label, mode, _bench_process(module, env), card, limit_w, flops)
+
+    mode, cell = BENCH_SCALING_CELL
+    label = f"bench_scaling {mode} {cell}"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "scaling.jsonl")
+        rc, _, diag, seconds = _bench_process(
+            ("-m", "dpft_tpu_torch.bench_scaling", out, mode, cell), base)
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+    if len(rows) != 1 or "error" in rows[0]:
+        raise AssertionError(f"{label}: exit {rc}, {rows}")
+    row = {k: v for k, v in rows[0].items() if k not in ("mode", "wall_sec")}
+    results[label] = _check_bench_run(label, mode, (rc, row, diag, seconds),
+                                      card, limit_w, flops)
+
+    rc, result, _, seconds = _bench_process(module, {"BENCH_HOIST": "1"})
+    if rc != 1 or "BENCH_HOIST" not in (result or {}).get("error", ""):
+        raise AssertionError(f"BENCH_HOIST=1: exit {rc}, {result}")
+    print(f"[bench] BENCH_HOIST=1: exit 1 in {seconds:.1f} s, {result}")
+    return results
+
+
 def _assert_full_float32(after):
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
@@ -4404,6 +4488,7 @@ def main():
     _timed("native_radar", phase_native_radar)
     paths["prepare"] = _timed("prepare and reference_ckpt", phase_prepare,
                               config_path, config, model)
+    _timed("bench", phase_bench, flops)
     # `launches` is the count on the kernel's own main path.
     reports = [(fwd_report, "train"), (bwd_report, "train"),
                (mm_fwd_report, "train_mm"), (mm_bwd_report, "train_mm"),

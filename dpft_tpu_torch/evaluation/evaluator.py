@@ -3,10 +3,11 @@
 Counterpart of dpft_tpu/evaluation/evaluator.py (CentralizedEvaluator). It
 loads a checkpoint, runs the forward over the test loader, computes the
 configured metrics (``evaluate.metrics``, averaged over batches) and hands
-every batch to the K-Radar exporter, then times the forward with CUDA
-events (10 warm-up runs, then ``repetitions`` timed ones) and counts the
-FLOPs of one forward and the parameters (``evaluate_complexity``). Results
-go to ``results.json`` in the log directory instead of TensorBoard.
+every batch to the K-Radar exporter, then times the forward on the card
+(``utils.profiling.benchmark``: CUDA events, 10 warm-up runs, then
+``repetitions`` timed ones) and counts the FLOPs of one forward and the
+parameters (``evaluate_complexity``). Results go to ``results.json`` in
+the log directory instead of TensorBoard.
 
 Data parallel (several ranks, dpft_tpu_torch/parallel): each rank runs the
 forward on its rows of every batch (the loader's shard), and the outputs
@@ -26,13 +27,16 @@ from typing import Any, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from dpft_tpu_torch import parallel
 from dpft_tpu_torch.evaluation.exporters import build as build_exporter
 from dpft_tpu_torch.evaluation.metric import Metric, build_metric
 from dpft_tpu_torch.models import registry
-from dpft_tpu_torch.models.dpft import parameter_count
+from dpft_tpu_torch.utils import profiling
+
+# Device types whose forward latency ``evaluate_inference_time`` measures:
+# the card's. A CPU time under the latency's names would read as the card's.
+LATENCY_DEVICES = ("cuda",)
 
 
 def to_device(tree: Dict[str, Any], device: torch.device
@@ -44,7 +48,7 @@ def to_device(tree: Dict[str, Any], device: torch.device
 def forward_flops(model: torch.nn.Module,
                   batch: Dict[str, torch.Tensor]) -> int:
     """FLOPs of one forward of ``model`` on ``batch``, by
-    ``torch.utils.flop_counter.FlopCounterMode``.
+    ``utils.profiling.cost_analysis`` (``FlopCounterMode``).
 
     Counted: 2 x the multiply-adds of every convolution and matrix product
     (bias adds, normalisations, activations and elementwise operations are
@@ -72,16 +76,13 @@ def forward_flops(model: torch.nn.Module,
     forward alone. Both settings are put back afterwards.
     """
     params = [p for p in model.parameters() if p.requires_grad]
-    counter = FlopCounterMode(display=False)
     try:
         for p in params:
             p.requires_grad_(False)
-        with counter:
-            model(batch)
+        return profiling.cost_analysis(model, batch)["flops"]
     finally:
         for p in params:
             p.requires_grad_(True)
-    return counter.get_total_flops()
 
 
 class CentralizedEvaluator:
@@ -150,30 +151,24 @@ class CentralizedEvaluator:
 
     def evaluate_inference_time(self, model: torch.nn.Module,
                                 data_loader: Iterable) -> Dict[str, float]:
-        """Forward latency on the card by CUDA events (mean / std ms).
+        """Forward latency on the card (mean / std ms of
+        ``utils.profiling.benchmark``: CUDA events per forward, the std
+        with ddof=1 as the JAX package's).
 
         On the CPU nothing is measured and the result is empty.
         """
         device = next(model.parameters()).device
-        if device.type != "cuda":
+        if device.type not in LATENCY_DEVICES:
             return {}
         batch, _ = next(iter(data_loader))
         batch = to_device(batch, device)
-        times = []
         with torch.inference_mode():
-            for i in range(self.warmup + self.repetitions):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                model(batch)
-                end.record()
-                torch.cuda.synchronize(device)
-                if i >= self.warmup:
-                    times.append(start.elapsed_time(end))
+            mean, std = profiling.benchmark(
+                model, batch, device=device, repetitions=self.repetitions,
+                warmup=self.warmup)
         # Data parallel: the slowest rank's.
         stats = parallel.gather_rows({"t": torch.tensor(
-            [[np.mean(times), np.std(times)]], dtype=torch.float64,
-            device=device)})["t"]
+            [[mean, std]], dtype=torch.float64, device=device)})["t"]
         mean, std = stats[stats[:, 0].argmax()].tolist()
         return {"Inference_time_mean_ms": mean, "Inference_time_std_ms": std}
 
@@ -189,7 +184,7 @@ class CentralizedEvaluator:
         if not parallel.is_main():
             return {}
         return {"FLOPS": float(forward_flops(model, batch)),
-                "Parameters": float(parameter_count(model))}
+                "Parameters": float(profiling.parameter_count(model))}
 
     def evaluate(self, checkpoint: str, data_loader: Iterable,
                  dst: Optional[str] = None) -> Dict[str, float]:

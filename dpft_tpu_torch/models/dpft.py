@@ -40,6 +40,8 @@ from dpft_tpu_torch.models.heads import build_detection_head
 from dpft_tpu_torch.models.layers.common import get_compute_dtype
 from dpft_tpu_torch.models.necks import build_neck
 from dpft_tpu_torch.models.queries import build_querent
+# Moved to utils/profiling.py; importable from here as before.
+from dpft_tpu_torch.utils.profiling import parameter_count  # noqa: F401
 
 
 class DPFT(nn.Module):
@@ -142,7 +144,3 @@ def from_config(config: Dict[str, Any]) -> DPFT:
         compute_dtype=get_compute_dtype(computing),
         remat=bool(computing.get("remat", False)),
     )
-
-
-def parameter_count(model: nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters())

@@ -89,7 +89,9 @@ def test_port_never_imports_jax():
                  "data.kradar.processor", "ops.radar_reduce", "data.loader",
                  "utils.config", "utils.device", "parallel.tp",
                  "ops.radar_reduce_native", "ops.nsga2", "utils.geometry",
-                 "utils.project", "utils.data", "utils.visu"):
+                 "utils.project", "utils.data", "utils.visu",
+                 "utils.profiling", "utils.example", "bench",
+                 "bench_scaling"):
         assert f"dpft_tpu_torch.{name}" in report["modules"], name
     assert report["leaked"] == []
 
