@@ -39,12 +39,15 @@ not 0:
    within 1e-5 (f32) and 2e-2 (bf16) of each output's largest element of
    the eager forward, exactly 12 msda_fwd launches per forward and no
    other. Export, save and load seconds, ms per forward of the loaded
-   program and of the eager model by CUDA events. The same for the model
-   of phase 11 under ``fuser.pallas_msda: "mm"`` in f32 (``export_mm``,
-   after phase 12): one ``dpft.msda_mm_fwd`` node per view and iteration
-   and no ``dpft.msda_fwd`` node; per forward of the loaded program exactly
-   12 ``msda_mm_fwd`` launches, one ``msda_fwd`` per level above the
-   cutoff and iteration (the camera's 512x910: 4) and no backward.
+   program and of the eager model by CUDA events. The same in f32 under
+   ``fuser.pallas_msda: "mm"`` (``export_mm``, after phase 12; on the mm
+   config cut in depth, ``cut_depth_config``: ResNet-18
+   backbones and one fusion iteration, from seed 0): one
+   ``dpft.msda_mm_fwd`` node per view and iteration and no
+   ``dpft.msda_fwd`` node; per forward of the loaded program exactly one
+   ``msda_mm_fwd`` launch per view and iteration, one ``msda_fwd`` per
+   level above the cutoff and iteration (the camera's 512x910) and no
+   backward.
 6. Backward kernel vs plain: ``msda_bwd`` against torch.autograd.grad
    through ``ms_deform_attn_core_plain`` on the same inputs and grad_out,
    at the small border cases (D = 2, 3), at the flagship level shapes of
@@ -172,7 +175,8 @@ not 0:
    (torch.profiler).
 15. Prepare path (the third main path): a raw K-Radar tree of ten frames
    (eight train, one val, one test) at K-Radar's shapes is written to a
-   temporary directory, then
+   temporary directory (with two large Sedans per frame,
+   ``rewrite_labels``), then
    ``dpft_tpu_torch.prepare.main`` runs on it with config/kradar.json on
    the default device (TF32 set on beforehand, found off afterwards).
    Checked: the twelve files of every frame, the plane
@@ -188,10 +192,11 @@ not 0:
    float64 cube, cast on the card, kernels, planes back, files; beside it
    the same frame with the cast on the host. Last, before the tree is
    removed, ``dpft_tpu_torch.export.main`` (the export CLI, ``--batch 1``)
-   on it: no kernel launched while tracing, and its artifact runs the test
-   frame within 1e-5 of each output's largest element of the eager model.
-   Then, still on that tree (``reference_ckpt``): the flagship model as a
-   reference full-model pickle (``write_reference_pickle``: ``dprt.*``
+   on it (for the flagship cut in depth, ``cut_depth_config``, from seed
+   0): no kernel launched while tracing, and its artifact runs
+   the test frame within 1e-5 of each output's largest element of the
+   eager model. Then, still on that tree (``reference_ckpt``): that model
+   as a reference full-model pickle (``write_reference_pickle``: ``dprt.*``
    stub classes, no class of the port, and a ``torch.device``, a
    ``functools.partial``, a numpy array and ``torch.nn.functional.relu``
    beside the tensors) through ``registry.load`` on the card (the same
@@ -233,7 +238,9 @@ not 0:
    mesh), the flagship through ``parallel.distribute`` (FSDP2): its B=4
    f32 step against the step without a group (phase 7's bounds), 12 + 12
    launches, ms per step; ``CentralizedTrainer`` in float64 on the plain
-   core with deterministic algorithms, SGD with momentum and
+   core (the flagship cut to ResNet-18 backbones and one fusion
+   iteration, ``cut_depth_config``) with deterministic algorithms, SGD
+   with momentum and
    ``accumulate_steps`` 2, one epoch with ``save_optimizer`` and one
    resumed from it, every tensor of its checkpoints and optimizer states
    within ``TP_FIT_TOL`` of the run without a group, the last checkpoint
@@ -257,7 +264,8 @@ not 0:
    and BENCH_WARMUP 3: the default run (inference, B=4, bfloat16), train
    at B=4 in float32 with BENCH_FLOPS=1 (3 steps after 2), prepare on the
    default device (the four frame ids of tests/kradar_fixture.py at
-   K-Radar's shapes), inference at B=1 in float32 as the cell ``1:f32`` of
+   K-Radar's shapes; without the NumPy baseline), inference at
+   B=1 in float32 as the cell ``1:f32`` of
    ``python -m dpft_tpu_torch.bench_scaling`` (which passes the bench's
    stderr on); then BENCH_HOIST=1. Each run exits 0 with a last
    line of exactly the port's keys for its mode (``port_bench_keys``: the
@@ -270,11 +278,36 @@ not 0:
    BENCH_HOIST=1 exits 1 with an error line. Each run's last line is
    printed whole.
 
+23. Overfit (``phase_overfit``, before phase 15): tests/test_overfit_metrics.
+   py's recipe at the small config, from the port's own init at seeds 0-3
+   (``OVERFIT_RUNS``; two classes and ``"mm"`` at seed 0). The fixture's
+   raw tree (``write_fixture_tree``: tests/kradar_fixture.py's files and
+   bits, the recipe's two large boxes) is prepared on the card by
+   ``prepare.main`` (the radar kernels at 6 elevation bins, exactly one of
+   each per cube, the planes held against the plain version within
+   ``FIXTURE_RADAR_TOL``: the overfit_prepare path), then each run trains
+   80 epochs through ``CentralizedTrainer.train`` with no checkpoint and
+   exact launches (the overfit and overfit_mm paths); its first 10 epochs'
+   losses are held against the plain core's from the same init
+   (``PLAIN_LOSS_RTOL``). The floors (``floor_failures``: the test's, and
+   two classes present in every sample) are held at
+   ``CPU_MET_FLOORS_NUDGED`` and printed elsewhere.
+   The first held run is saved once (``registry.save``) and goes through
+   ``evaluate.main`` (finite mAP and mGIoU in results.json) and
+   ``export.main`` (the artifact within 1e-5 of the eager outputs on the
+   test frame). In phase 15, on its K-Radar-shape tree, whose labels are
+   the same two boxes (``phase_overfit_flagship``): config/kradar.json
+   from seed 0 for as many
+   epochs as ``FLAGSHIP_OVERFIT_S`` allows, no checkpoint, exact launches
+   (overfit_flagship); the loss finite and its last epoch below half its
+   first; the small recipe's floor readings printed, not held.
+
 The kernel report gives, for every kernel, its launches on every main
 path (serve, export, train, eval_dp and train_dp (rank 0's: 9 eval
 forwards, one step), train_tp, train_remat, serve_mm,
 export_mm, train_mm, serve_<family> and train_<family> of the three
-families and of the four configs, prepare), its error against the plain
+families and of the four configs, prepare, overfit_prepare, overfit,
+overfit_mm, overfit_flagship), its error against the plain
 version, its time, the plain version's,
 and ``bound_ms``: the least time the card could take, the larger of the
 bytes the function must move (every input read once, every output written
@@ -286,8 +319,10 @@ per corner and channel of every sampling point forward, 30 backward), the
 formula that the evaluator's FLOP count takes too; the dense products that
 the matmul form itself computes are printed apart, in the per-level lines.
 ``library_ms`` is ``grid_sample`` times att for the matmul-form kernels
-(camera 128x228 level) and null elsewhere: no single PyTorch call computes
-multi-level MSDA or either radar plane.
+(camera 128x228 level); for ``msda_fwd`` / ``msda_bwd`` the reference's own
+PyTorch core, ``grid_sample`` per level times the attention, summed
+(``grid_sample_core``, the camera call at B=1 / B=4, forward / autograd's
+backward); null for the radar kernels: no PyTorch call computes a plane.
 
 The last two lines are the kernel report and the result:
     {"kernels": [...]}
@@ -347,9 +382,11 @@ KRADAR_CUBE = (64, 256, 37, 107)
 RADAR_SHAPES = ((16, 32, 5, 9), (16, 32, 6, 9), (8, 32, 6, 10), (12, 24, 3, 5),
                 (6, 40, 4, 3), (7, 300, 3, 5), (5, 12, 37, 2), KRADAR_CUBE)
 RADAR_TOL = dict(rtol=3e-4, atol=3e-2)
-# The least typical size of a reference channel that this tolerance can
-# check: 30 times atol.
-RADAR_FLOOR = 30 * RADAR_TOL["atol"]
+# The fixture's cube (uniform powers, 6 elevation bins) makes the last
+# channel of the EA plane typically 0.011 (0.3 in RA), where the plain
+# version lies 1.7e-6 (6.6e-6) from the numpy transliteration in float64
+# (on the CPU): held with a hundredth of the atol.
+FIXTURE_RADAR_TOL = dict(rtol=3e-4, atol=3e-4)
 
 # Real sample ids of sequence 10 from the frozen split tables, so that the
 # processor's split filter keeps them: eight train frames, one val, one
@@ -731,6 +768,27 @@ def phase_kernel_times(view_shapes):
                       f"launch: {', '.join(sorted(cells)) or 'not measured'}")
 
 
+def grid_sample_core(value, shapes, loc, att):
+    """The reference's own PyTorch MSDA core: ``F.grid_sample`` (bilinear,
+    zeros, align_corners=False) on each level, times the attention, summed
+    over levels and points. One call computes what ``msda_fwd`` computes:
+    the library call of rows 1 / 1b. Timed only; the port never calls it."""
+    B, _, H, D = value.shape
+    N, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    levels = value.split([h * w for h, w in shapes], dim=1)
+    grids = 2 * loc - 1
+    sampled = []
+    for lvl, (h, w) in enumerate(shapes):
+        image = levels[lvl].flatten(2).transpose(1, 2).reshape(B * H, D, h, w)
+        grid = grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1)
+        sampled.append(torch.nn.functional.grid_sample(
+            image, grid.to(value.dtype), mode="bilinear",
+            padding_mode="zeros", align_corners=False))   # (B*H, D, N, P)
+    weights = att.transpose(1, 2).reshape(B * H, 1, N, L * P)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * weights).sum(-1)
+    return out.view(B, H * D, N).transpose(1, 2).contiguous()
+
+
 def phase_msda_call_times(view_shapes):
     """One MSDA call of each view through ``msda_fwd`` and ``msda_bwd`` at
     B=1 and B=4: ms by CUDA events and the card's own time by the profiler,
@@ -738,13 +796,17 @@ def phase_msda_call_times(view_shapes):
     (forward: sampled value sectors, locations, weights read once and the
     output written once, or 10 operations per corner and channel; backward:
     those and grad_out read once, d_value written whole, d_loc and d_att
-    written once, or 30 operations per corner and channel). Events first:
+    written once, or 30 operations per corner and channel), and the same
+    call through ``grid_sample_core`` (held once against the plain version
+    within 1e-4 of its largest element; its forward, and its backward by
+    autograd on a kept graph, by events: the library times). Events first:
     the profiler runs after every timed phase, as ``phase_kernel_times``.
-    The profiler's side is ``profiling.device_activity`` over 10 calls."""
+    The profiler's side is ``profiling.device_activity`` over 10 calls.
+    Returns the library times in ms by (fwd / bwd, view, B), float32."""
     from dpft_tpu_torch.ops import deform_attn as da
     from dpft_tpu_torch.utils import profiling
 
-    cells = {}
+    cells, library = {}, {}
     for view, shapes in view_shapes.items():
         for B in (B1, B_TRAIN):
             value, loc, att = _msda_inputs(shapes, B, N_QUERIES, HEADS,
@@ -769,6 +831,22 @@ def phase_msda_call_times(view_shapes):
                     *args, g)
             with torch.inference_mode():
                 events = {k: _cuda_ms(fn, reps=50) for k, fn in calls.items()}
+                want = da.ms_deform_attn_core_plain(value, shapes, loc, att)
+                got = grid_sample_core(value, shapes, loc, att)
+                # grid_sample takes the location as 2 loc - 1 and maps it
+                # back: float32 rounding moves a point by up to 1e-7 of the
+                # map's side (5e-5 pixel on 910 columns).
+                err = (got - want).abs().max().item()
+                if not err <= 1e-4 * want.abs().max().item():
+                    raise AssertionError(f"grid_sample_core {view} B={B}: "
+                                         f"err {err:.3e}")
+                library["fwd", view, B] = _cuda_ms(
+                    lambda: grid_sample_core(value, shapes, loc, att))
+            inputs = [t.clone().requires_grad_() for t in (value, loc, att)]
+            out = grid_sample_core(inputs[0], shapes, *inputs[1:])
+            library["bwd", view, B] = _cuda_ms(lambda: torch.autograd.grad(
+                out, inputs, grad, retain_graph=True))
+            del out, inputs
             cells[view, B] = (calls, events, bounds)
     for (view, B), (calls, events, bounds) in cells.items():
         parts = []
@@ -783,7 +861,10 @@ def phase_msda_call_times(view_shapes):
         (f_ms, f_by), (b_ms, b_by) = bounds
         print(f"[msda calls] {view} B={B}: {'; '.join(parts)}; bound (f32) "
               f"fwd {1e3 * f_ms:.2f} us ({f_by}), bwd {1e3 * b_ms:.2f} us "
-              f"({b_by})")
+              f"({b_by}); grid_sample core (f32, the library call) fwd "
+              f"{library['fwd', view, B]:.4f} ms, bwd "
+              f"{library['bwd', view, B]:.4f} ms by events")
+    return library
 
 
 class _Loader:
@@ -2873,8 +2954,9 @@ def phase_trained_steps(config, model, mm_model):
         _compare_steps(f"updated weights, {what}", against, a, b, tol=tol)
 
 
-def _check_plane(what, got, want, exact_lookup=True):
-    """Holds a (.., 6) plane against its reference, channel by channel.
+def _check_plane(what, got, want, exact_lookup=True, tol=RADAR_TOL):
+    """Holds a (.., 6) plane against its reference, channel by channel,
+    within ``tol``; a channel must typically be 30 times its atol.
     Returns the max abs err, the number of lookups that differ, and per
     channel the typical size of the reference (median of its absolute
     values) and the max abs err."""
@@ -2889,14 +2971,14 @@ def _check_plane(what, got, want, exact_lookup=True):
     for c in (0, 1, 2, 4, 5):
         # A channel whose values are no larger than the tolerance would be
         # checked by nothing: a zero in its place would pass.
-        if typical[c] < RADAR_FLOOR:
+        if typical[c] < 30 * tol["atol"]:
             raise AssertionError(
                 f"{what}: channel {c} of the reference is typically "
-                f"{typical[c]:.3e}, too small for atol {RADAR_TOL['atol']} "
+                f"{typical[c]:.3e}, too small for atol {tol['atol']} "
                 "to tell a wrong value from a right one")
-        if not torch.allclose(got[..., c], want[..., c], **RADAR_TOL):
+        if not torch.allclose(got[..., c], want[..., c], **tol):
             raise AssertionError(f"{what}: channel {c} max abs err "
-                                 f"{errs[c]:.3e} exceeds {RADAR_TOL}")
+                                 f"{errs[c]:.3e} exceeds {tol}")
     mismatches = int((got[..., 3] != want[..., 3]).sum())
     if exact_lookup and mismatches:
         raise AssertionError(f"{what}: {mismatches} doppler-of-max lookups "
@@ -3150,9 +3232,10 @@ def _host_s(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_prepare(config_path, config, model):
+def phase_prepare(config_path, config, model, launch_paths):
     """The prepare path; returns its launches of every kernel. Then the
-    export CLI on the tree that it wrote."""
+    export CLI on the tree that it wrote, and the flagship overfit on it
+    (its launches go into ``launch_paths`` as overfit_flagship)."""
     from dpft_tpu_torch import export, prepare
     from dpft_tpu_torch.data import init as init_dataset
     from dpft_tpu_torch.data import load as load_dataset
@@ -3162,10 +3245,14 @@ def phase_prepare(config_path, config, model):
     from dpft_tpu_torch.ops import radar_reduce as rr
     from dpft_tpu_torch.utils.example import write_raw_kradar
 
+    flagship = config
     root = tempfile.mkdtemp(prefix="dpft_prepare_")
     try:
         src, write_s = _host_s(lambda: write_raw_kradar(
             root, [sid for ids in FRAME_IDS.values() for sid in ids]))
+        # Two large Sedans per frame, which the flagship overfit trains
+        # on.
+        rewrite_labels(src, two_class=False)
         dst = os.path.join(root, "processed")
         n_frames = sum(map(len, FRAME_IDS.values()))
         print(f"[prepare] wrote a raw tree of {n_frames} frames at "
@@ -3325,6 +3412,11 @@ def phase_prepare(config_path, config, model):
 
         # The export CLI on this tree (its test split gives the example
         # batch): the artifact loads and runs on the card like the model.
+        # The CLIs below serve the flagship cut in depth
+        # (``cut_depth_config``), to keep the script within its time.
+        config = cut_depth_config(config)
+        model = registry.build(config["model"]["name"], config,
+                               device="cuda", seed=0).eval()
         ckpt = os.path.join(root, "run", "2026-01-01-00-00-00_checkpoint_0000.pt")
         registry.save(model, config, ckpt)
         artifact = os.path.join(root, "model.pt2")
@@ -3360,8 +3452,11 @@ def phase_prepare(config_path, config, model):
               f"output's largest element of the eager forward (tol "
               f"{TOL[torch.float32]}), ok")
         phase_reference_ckpt(root, dst, config, model)
+        del model
         _timed("prepare native, BEV train and evaluate", phase_tree_clis,
-               root, src, dst, config)
+               root, src, dst, flagship)
+        launch_paths["overfit_flagship"] = _timed(
+            "overfit_flagship", phase_overfit_flagship, dst, flagship)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
@@ -3450,7 +3545,7 @@ def phase_reference_ckpt(root, dst, config, model):
             raise AssertionError(f"{path} loaded")
         if os.path.exists(marker):
             raise AssertionError(f"unpickling {path} ran its code")
-    print(f"[reference_ckpt] flagship as a reference full-model pickle "
+    print(f"[reference_ckpt] the model as a reference full-model pickle "
           f"({os.path.getsize(ckpt) / 2 ** 20:.1f} MiB, globals "
           f"{len(names)}: dprt.* stubs, torch.nn, numpy, functools, no "
           f"dpft_tpu_torch) -> registry.load on cuda: the same state bits "
@@ -3735,9 +3830,22 @@ def _hold_files(what, got, want, tol):
 TP_FIT_TOL = 1e-6
 
 
+def cut_depth_config(config):
+    """``config`` cut in depth: every backbone a ResNet-18 and one fusion
+    iteration, at the same input and level shapes. ``_tp_fit`` and the
+    export_mm path run at this depth to keep the script within its
+    time; what they hold (equalities of the sharded and the single-process
+    fit; the program's operators, launches and outputs) holds at any
+    depth."""
+    config = family_config(config, "ResNet18")
+    config["model"]["fuser"]["i_iter"] = 1
+    return config
+
+
 def _tp_fit(config, train, val, dst, resume=None):
-    """``CentralizedTrainer.train`` of the float64 flagship on the plain
-    core (dropout 0) from seed 0, with SGD and momentum (``TP_FIT_TOL``
+    """``CentralizedTrainer.train`` of the float64 flagship at the depth of
+    ``cut_depth_config`` on the plain core (dropout 0) from seed 0, with SGD
+    and momentum (``TP_FIT_TOL``
     says why not AdamW), ``train.accumulate_steps`` 2 (the first
     micro-batch's backward does not sync, ``parallel.gradient_sync``) and
     ``train.save_optimizer``: epoch 0,
@@ -3773,7 +3881,7 @@ def _tp_fit_epoch(config, train, val, dst, epoch, resume):
     from dpft_tpu_torch.models.registry import optimizer_state_path
     from dpft_tpu_torch.training import trainer as trainer_lib
 
-    cfg = json.loads(json.dumps(config))
+    cfg = cut_depth_config(config)
     cfg["train"].update(epochs=epoch + 1, save_optimizer=True,
                         accumulate_steps=2, optimizer={
                             "name": "SGD", "lr": 1e-4, "momentum": 0.9})
@@ -3923,7 +4031,8 @@ def phase_tensor_parallel(config, view_shapes):
         shutil.rmtree(root, ignore_errors=True)
     print(f"[tensor_parallel] CentralizedTrainer in a one-rank NCCL group "
           f"(computing.model_parallel 1, the (1, 1) mesh of "
-          f"init_distributed), float64 plain core, deterministic "
+          f"init_distributed), the flagship cut to ResNet-18 backbones "
+          f"and one fusion iteration, float64 plain core, deterministic "
           f"algorithms, SGD with momentum, accumulate_steps 2 over 2 B=2 "
           f"steps + 1 validation batch, save_optimizer, "
           f"then an epoch resumed from the epoch-0 checkpoint and its "
@@ -4223,6 +4332,604 @@ def _bev_test_classes(config, src, checkpoint):
     return boxes, present
 
 
+# The overfit recipe of tests/test_overfit_metrics.py on the raw tree of
+# tests/kradar_fixture.py (written here by ``write_fixture_tree``, without
+# importing either): four frames of sequence 10 at the fixture's shapes, two
+# large boxes per frame, the small model of tests/test_e2e.py, AdamW at lr
+# 3e-3 for 80 epochs, loss weights {2, 1, 1, 1, 1}, no per-step metric.
+FIXTURE_IDS = {"train": ("00027_00001", "00028_00002"),
+               "val": ("00039_00013",), "test": ("00309_00283",)}
+FIXTURE_CUBE = (8, 32, 6, 10)  # (doppler, range, elevation, azimuth)
+FIXTURE_IMAGE_HW = (64, 96)  # one half of the stereo image
+OVERFIT_EPOCHS = 80
+# The floors of tests/test_overfit_metrics.py:109-156: matched centers within
+# 2 m, angles within 0.3, heights above 1, mAP above 0.5, mGIoU above 0
+# (single class) or -0.2 (two classes).
+FLOOR_CENTER_M, FLOOR_ANGLE, FLOOR_HEIGHT, FLOOR_MAP = 2.0, 0.3, 1.0, 0.5
+FLOOR_MGIOU = {False: 0.0, True: -0.2}
+# The runs of phase_overfit: (label, two classes, "mm", seed); the port's
+# own init from each seed (the card has no JAX to draw the JAX test's).
+OVERFIT_RUNS = (("overfit", False, False, 0), ("overfit", False, False, 1),
+                ("overfit", False, False, 2), ("overfit", False, False, 3),
+                ("overfit_two_class", True, False, 0),
+                ("overfit_mm", False, True, 0))
+# The runs at which the same run on the CPU (plain versions, one thread,
+# float32; PERF.md, the learning path) met every floor, and of those the ones
+# that still met them with the initial weights nudged by 1e-6 (relative,
+# two draws): the card holds the floors at these. The recipe is fragile to
+# the draw in both packages (3 of seeds 0-7 each), and seed 2 met them on
+# the CPU but under neither nudge, so the card's arithmetic decides it
+# there: it is read (on the card its plain-core run missed them as its
+# kernel run did, PERF.md, the learning path).
+CPU_MET_FLOORS = {("overfit", 1), ("overfit", 2)}
+CPU_MET_FLOORS_NUDGED = {("overfit", 1)}
+# Epochs of the kernel run held against the plain-core run from the same
+# init, and the loss tolerance (relative) per epoch. Epoch 0 runs on the
+# same weights: phase 7's single-step bound. Every update after it carries
+# the step's rounding through AdamW, which moves an element whose gradient
+# is zero but for rounding a whole learning rate, and the recipe amplifies
+# it: on the CPU, the port's and JAX's float32 runs from the same weights
+# parted by 1.6e-3 after one update and 4e-3 after nine, and a 1e-10
+# relative nudge of one package's float64 weights moved its loss 2.2e-2 by
+# update 9; on the card the kernel and plain runs parted by up to 2.3e-2
+# by epoch 9 (PERF.md, the learning path).
+PLAIN_EPOCHS = 10
+PLAIN_LOSS_RTOL = (1e-4,) + (1e-2,) * 2 + (1e-1,) * (PLAIN_EPOCHS - 3)
+# The flagship overfit's budget: 90 s, not the 120 s first planned, so that
+# the whole script stays within 900 s on the card's hosts so far (in
+# 120 s its loss fell from 84 to 2.6-3.4).
+FLAGSHIP_OVERFIT_S = 90.0
+
+
+def fixture_config(max_boxes=8):
+    """tests/kradar_fixture.py:base_config."""
+    return {
+        "dataset": "kradar",
+        "computing": {"dtype": "float32", "seed": 0, "workers": 2,
+                      "device": "cpu"},
+        "data": {
+            "revision": "v2", "image_size": 32, "num_classes": 2,
+            "max_boxes": max_boxes,
+            "categories": {
+                "Sedan": 0, "Bus or Truck": -1, "Motorcycle": -1,
+                "Bicycle": -1, "Bicycle Group": -1, "Pedestrian": -1,
+                "Pedestrian Group": -1, "Background": -1},
+            "fov": {"x": [0.0, 72.0], "y": [-6.4, 6.4], "z": [-2.0, 6.0],
+                    "azimuth": [-50, 50]}},
+        "train": {"batch_size": 2, "shuffle": True, "epochs": 1,
+                  "logging": None,
+                  "optimizer": {"name": "AdamW", "lr": 1e-4},
+                  "anassigner": "HungarianAnassigner",
+                  "criterion": "SetCriterion",
+                  "loss_weights": {"total_class": 1.0, "object_class": 0.0,
+                                   "center": 1.0, "size": 1.0, "angle": 1.0},
+                  "scheduler": {"name": "ConstantLR", "factor": 1.0}},
+        "evaluate": {"logging": None,
+                     "metrics": {"mAP": "mAP3D", "mGIoU": "mGIoU3D"},
+                     "exporter": {"name": "kradar"}}}
+
+
+def overfit_config(two_class=False, mm=False, seed=0):
+    """The overfit recipe's config: tests/test_e2e.py's small model on the
+    fixture's config with tests/test_overfit_metrics.py's settings."""
+    views = ["camera_mono", "radar_bev", "radar_front"]
+    config = fixture_config()
+    config["model"] = {
+        "name": "dprt", "inputs": views,
+        "skiplinks": {k: True for k in views},
+        "backbones": {
+            "camera_mono": {"name": "ResNet18", "multi_scale": 4},
+            "radar_bev": {"name": "ResNet18", "in_channels": 6,
+                          "multi_scale": 4},
+            "radar_front": {"name": "ResNet18", "in_channels": 6,
+                            "multi_scale": 4}},
+        "necks": {k: {"name": "FPN", "in_channels_list":
+                      [3 if k == "camera_mono" else 6, 64, 128, 256, 512],
+                      "out_channels": 16} for k in views},
+        "embeddings": {k: {"name": "sinusoidal_embedding", "num_feats": 16,
+                           "n_levels": 5, "normalize": True} for k in views},
+        "querent": {"name": "data_agnostic_static_querent",
+                    "transformation": "spher2cart",
+                    "resolution": [4, 4, 1],
+                    "minimum": [4, -50, 0], "maximum": [72, 50, 0]},
+        "fuser": {"name": "IMPFusion", "i_iter": 1, "m_views": 3,
+                  "d_model": 16, "d_ffn": 32, "n_queries": 16,
+                  "n_levels": [5, 5, 5], "n_heads": [8, 8, 8],
+                  "n_points": [4, 4, 4], "norm": True, "dropout": 0.0,
+                  "reduction": "linear", "activation": "Mish"},
+        "head": {"name": "linear_detection_head", "in_channels": 16,
+                 "num_classes": 2, "num_reg_layers": 2,
+                 "num_cls_layers": 2}}
+    config["computing"]["seed"] = seed
+    config["train"]["epochs"] = OVERFIT_EPOCHS
+    config["train"]["optimizer"]["lr"] = 3e-3
+    config["train"]["loss_weights"] = {
+        "total_class": 2.0, "object_class": 1.0,
+        "center": 1.0, "size": 1.0, "angle": 1.0}
+    if two_class:
+        config["data"]["num_classes"] = 3
+        config["model"]["head"]["num_classes"] = 3
+        config["data"]["categories"]["Bus or Truck"] = 1
+    if mm:
+        config["model"]["fuser"]["pallas_msda"] = "mm"
+    config["train"]["evaluating"] = -1
+    return config
+
+
+def overfit_labels(two_class):
+    """tests/test_overfit_metrics.py:_write_boxes's two large boxes (the
+    processor doubles l/w/h: 3 x 2 x 1 here is a 6 x 4 x 2 m box)."""
+    far = ("*, 1, Bus or Truck, 45.0, -2.0, 0.2, 5.0, 4.0, 2.5, 1.5\n"
+           if two_class else
+           "*, 1, Sedan, 45.0, -2.0, 0.2, 5.0, 3.0, 2.0, 1.0\n")
+    return "*, 0, Sedan, 20.0, 1.0, 0.5, 0.0, 3.0, 2.0, 1.0\n" + far
+
+
+def rewrite_labels(src, two_class):
+    """Every label file of ``src`` keeps its header line and gets the two
+    boxes of ``overfit_labels``."""
+    directory = os.path.join(src, SEQUENCE, "info_label_v2")
+    for name in sorted(os.listdir(directory)):
+        path = os.path.join(directory, name)
+        with open(path) as f:
+            header = f.readline()
+        with open(path, "w") as f:
+            f.write(header + overfit_labels(two_class))
+
+
+def write_fixture_tree(root, two_class=None):
+    """tests/kradar_fixture.py:make_raw_kradar's raw tree under
+    ``root/raw``, the same files and bits (the same draws of
+    ``np.random.default_rng(7)`` in the same order); with ``two_class`` a
+    bool, its labels rewritten to the overfit recipe's two boxes. Returns
+    the raw tree's path."""
+    import cv2
+    from scipy.io import savemat
+
+    from dpft_tpu_torch.data.pcd import write_pcd
+
+    rng = np.random.default_rng(7)
+    src = os.path.join(root, "raw")
+    base = os.path.join(src, SEQUENCE)
+    for sub in ("info_label_v2", "info_calib", "cam-front",
+                "radar_tesseract", "os1-128", "os2-64"):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    with open(os.path.join(base, "description.txt"), "w") as f:
+        f.write("urban,day,normal")
+    with open(os.path.join(base, "info_calib", "calib_camera_lidar.txt"),
+              "w") as f:
+        f.write("header\n")
+        p = [300.0, 0.0, 48.0, 0.0, 0.0, 300.0, 32.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+        f.write(",".join(str(v) for v in p))
+    with open(os.path.join(base, "info_calib", "calib_radar_lidar.txt"),
+              "w") as f:
+        f.write("header\n")
+        f.write("0,2.54,0.3")  # frame difference, dx, dy
+
+    h, w = FIXTURE_IMAGE_HW
+    for sid in (sid for ids in FIXTURE_IDS.values() for sid in ids):
+        idx = sid.split("_")[0]
+        with open(os.path.join(base, "info_label_v2", f"{sid}.txt"),
+                  "w") as f:
+            f.write(f"timestamp={idx}_{idx}_{idx}_{idx}_{idx}\n")
+            f.write("*, 0, Sedan, 20.0, 1.0, 0.5, 10.0, 2.0, 1.0, 0.8\n")
+            f.write("*, 1, Sedan, 40.0, -2.0, 0.2, -5.0, 2.2, 0.9, 0.7\n")
+            f.write("*, 2, Bus or Truck, 30.0, 3.0, 0.5, 0.0, 4.0, 1.5, 1.5\n")
+        stereo = rng.integers(0, 255, size=(h, 2 * w, 3), dtype=np.uint8)
+        cv2.imwrite(os.path.join(base, "cam-front", f"cam-front_{idx}.png"),
+                    stereo)
+        tess = rng.uniform(1e8, 1e12, size=FIXTURE_CUBE).astype(np.float64)
+        savemat(os.path.join(base, "radar_tesseract", f"tesseract_{idx}.mat"),
+                {"arrDREA": tess})
+        n_pts = 120
+        fields = {
+            "x": rng.uniform(0.5, 60, n_pts).astype(np.float32),
+            "y": rng.uniform(-10, 10, n_pts).astype(np.float32),
+            "z": rng.uniform(-2, 4, n_pts).astype(np.float32),
+            "intensity": rng.uniform(0, 255, n_pts).astype(np.float32),
+            "t": rng.integers(0, 1_000_000, n_pts).astype(np.uint32),
+            "reflectivity": rng.integers(0, 65535, n_pts).astype(np.uint16),
+            "ring": rng.integers(0, 128, n_pts).astype(np.uint8),
+            "ambient": rng.integers(0, 65535, n_pts).astype(np.uint16),
+            "range": rng.integers(0, 200_000, n_pts).astype(np.uint32),
+        }
+        fields["x"][:3] = 0.0  # missing returns
+        write_pcd(os.path.join(base, "os1-128", f"os1-128_{idx}.pcd"), fields)
+        write_pcd(os.path.join(base, "os2-64", f"os2-64_{idx}.pcd"),
+                  dict(fields, x=fields["x"] + 0.05))
+    if two_class is not None:
+        rewrite_labels(src, two_class)
+    return src
+
+
+def floor_readings(out, targets, indices, metrics, two_class):
+    """Every reading of the overfit test's floors off one forward: per
+    matched query its center error, whether its class wins, its angle
+    error, its height and its IoU3D with its target (``ops.iou``); mAP and
+    mGIoU; and per sample the classes present among its targets and
+    predicted labels, which decide whether the metric's selection engages
+    (two or more) or it reads 1.0 by rule."""
+    from dpft_tpu_torch.ops.boxes import decode_corners
+    from dpft_tpu_torch.ops.iou import iou3d
+
+    get = {k: v.detach().double().cpu() for k, v in out.items()}
+    tgt = {k: torch.as_tensor(v).cpu() for k, v in targets.items()}
+    qi, gj = (i.cpu() for i in indices)
+    label = get["class"].argmax(-1)
+    matched, present = [], []
+    for b in range(get["center"].shape[0]):
+        real = tgt["gt_mask"][b].bool()
+        gt_label = tgt["gt_class"][b].argmax(-1)
+        present.append(sorted(set(label[b].tolist())
+                              | set(gt_label[real].tolist())))
+        for k in range(int(real.sum())):
+            q, g = int(qi[b, k]), int(gj[b, k])
+            box = decode_corners(*(get[n][b, q][None]
+                                   for n in ("center", "size", "angle")))
+            gt = decode_corners(*(tgt[f"gt_{n}"][b, g][None].double()
+                                  for n in ("center", "size", "angle")))
+            matched.append({
+                "sample": b, "query": q, "target": g,
+                "center_error": float((get["center"][b, q] - tgt[
+                    "gt_center"][b, g].double()).norm()),
+                "class_ok": bool(label[b, q] == gt_label[g]),
+                "class": int(gt_label[g]),
+                "angle_error": float((get["angle"][b, q] - tgt[
+                    "gt_angle"][b, g].double()).abs().max()),
+                "height": float(get["size"][b, q, 2]),
+                "iou3d": float(iou3d(box, gt).reshape(-1)[0])})
+    return {"matched": matched, "present": present,
+            "mAP": float(metrics["mAP"]), "mGIoU": float(metrics["mGIoU"]),
+            "two_class": two_class}
+
+
+def floor_failures(readings, history):
+    """The overfit test's floors that ``readings`` and the loss
+    ``history`` miss, and samples with fewer than two classes present
+    (empty when all hold)."""
+    missed = []
+    if not all(map(math.isfinite, history)):
+        missed.append(("finite loss", history))
+    elif not history[-1] < 0.5 * history[0]:
+        missed.append(("loss halves", history[0], history[-1]))
+    for m in readings["matched"]:
+        for name, ok in (("center", m["center_error"] < FLOOR_CENTER_M),
+                         ("class", m["class_ok"]),
+                         ("angle", m["angle_error"] < FLOOR_ANGLE),
+                         ("height", m["height"] > FLOOR_HEIGHT)):
+            if not ok:
+                missed.append((name, m))
+    if readings["two_class"] and \
+            {m["class"] for m in readings["matched"]} != {1, 2}:
+        missed.append(("matched classes", readings["matched"]))
+    for b, classes in enumerate(readings["present"]):
+        if len(classes) < 2:
+            missed.append(("two classes present", b, classes))
+    if not readings["mAP"] > FLOOR_MAP:
+        missed.append(("mAP", readings["mAP"]))
+    if not readings["mGIoU"] > FLOOR_MGIOU[readings["two_class"]]:
+        missed.append(("mGIoU", readings["mGIoU"]))
+    return missed
+
+
+def floor_report(history, readings):
+    """One line: the loss's ends, per matched query its center error (m)
+    and IoU3D, mAP, mGIoU and the classes present per sample."""
+    return (f"loss {history[0]:.4f} -> {history[-1]:.4f}; centers/IoU3D "
+            + ", ".join(f"{m['center_error']:.3f}/{m['iou3d']:.3f}"
+                        for m in readings["matched"])
+            + f"; mAP {readings['mAP']:.4f} mGIoU {readings['mGIoU']:.4f}; "
+            f"present {readings['present']}")
+
+
+def _train_loaders(config, processed):
+    """The train split's shuffled loader and its first batch unshuffled,
+    as tests/test_overfit_metrics.py reads them."""
+    from dpft_tpu_torch.data import init as init_dataset
+    from dpft_tpu_torch.data import load as load_dataset
+
+    dataset = init_dataset(config["dataset"], src=processed, split="train",
+                           config=config)
+    first = next(iter(load_dataset(dataset, config=config, shuffle=False)))
+    return load_dataset(dataset, config=config), first
+
+
+def _prepare_fixture(root, two_class, cfg):
+    """The fixture's raw tree with the recipe's boxes, prepared on the card
+    by ``prepare.main``; holds its planes against the plain version and
+    returns the processed tree, the launches and the worst plane error."""
+    from dpft_tpu_torch import prepare
+    from dpft_tpu_torch.data import prepare as build_processor
+    from dpft_tpu_torch.ops import radar_reduce as rr
+
+    src = write_fixture_tree(root, two_class)
+    dst = os.path.join(root, "processed")
+    _reset_launches()
+    prepare.main(src, cfg, dst)
+    launches = _read_launches()
+    with open(cfg) as f:
+        config = json.load(f)
+    processor = build_processor(config["dataset"], config)
+    worst = 0.0
+    for split, ids in FIXTURE_IDS.items():
+        for sid in ids:
+            cube = torch.from_numpy(processor.get_radar_tesseract(
+                os.path.join(src, SEQUENCE, "radar_tesseract",
+                             f"tesseract_{sid.split('_')[0]}.mat"))).cuda()
+            for name, want in zip(("ra", "ea"),
+                                  rr.reduce_tesseract_plain(cube)):
+                got = torch.from_numpy(np.load(os.path.join(
+                    dst, split, SEQUENCE, sid, f"{name}.npy"))).cuda()
+                worst = max(worst, _check_plane(
+                    f"fixture {sid}/{name}.npy", got, want,
+                    tol=FIXTURE_RADAR_TOL)[0])
+    return dst, launches, worst
+
+
+def _plain_history(config, processed, seed, epochs):
+    """The loss history of the first ``epochs`` epochs from the same init
+    on the plain MSDA core."""
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    config = dict(config, train=dict(config["train"], epochs=epochs))
+    msda_layer.ms_deform_attn_core = _plain_core
+    try:
+        return _overfit_run(config, processed, seed, kernels=False)[1]
+    finally:
+        msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+
+
+def _overfit_run(config, processed, seed, kernels=True):
+    """The recipe's epochs from the port's own init at ``seed`` (no
+    checkpoint): the model, its loss history, its launches, seconds and
+    floor readings on the first train batch. With ``kernels`` the launches
+    must be the model's for every step (on the plain core: none)."""
+    from dpft_tpu_torch.evaluation.evaluator import to_device
+    from dpft_tpu_torch.evaluation.metric import build_metric
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.training import CentralizedTrainer
+
+    model = registry.build("dprt", config, device="cuda", seed=seed)
+    loader, (batch, targets) = _train_loaders(config, processed)
+    trainer = CentralizedTrainer.from_config(config)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.train(model, loader, dst=None)["history"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    batch = to_device(batch, torch.device("cuda"))
+    targets = to_device(targets, torch.device("cuda"))
+    with torch.inference_mode():
+        out = model(batch)
+        views = model.features(batch)
+    readings = floor_readings(
+        out, targets, trainer.loss_fn.match(out, targets),
+        build_metric(config["evaluate"])(out, targets),
+        config["data"]["num_classes"] == 3)
+    shapes = dict(zip(model.inputs, (s for _, s in views)))
+    steps = len(history) * len(loader)
+    expected = (_expected_launches(config, shapes, steps, steps) if kernels
+                else dict.fromkeys(KERNELS, 0))
+    if launches != expected:
+        raise AssertionError(f"{len(history)} epochs launched {launches}, "
+                             f"expected {expected}")
+    return model, history, launches, seconds, readings
+
+
+def _evaluate_and_export(root, processed, config, model, label):
+    """``evaluate.main`` and ``export.main`` on the run's one checkpoint:
+    a finite mAP in ``results.json``; the artifact gives the eager outputs
+    on the test frame within float32's tolerance."""
+    from dpft_tpu_torch import evaluate, export
+    from dpft_tpu_torch.data import init as init_dataset
+    from dpft_tpu_torch.data import load as load_dataset
+    from dpft_tpu_torch.evaluation.evaluator import to_device
+    from dpft_tpu_torch.models import registry
+
+    config = dict(config, train=dict(config["train"], logging="epoch"))
+    cfg = os.path.join(root, f"{label}.json")
+    with open(cfg, "w") as f:
+        json.dump(config, f)
+    ckpt = os.path.join(root, label, "checkpoints",
+                        f"{label}_checkpoint_{OVERFIT_EPOCHS - 1:04d}.pt")
+    registry.save(model, config, ckpt)
+    written = [n for _, _, names in os.walk(os.path.join(root, label))
+               for n in names if n.endswith(".pt")]
+    if len(written) != 1:
+        raise AssertionError(f"{label} wrote checkpoints {written}")
+    print(f"[overfit] {label}: its one checkpoint, {os.path.getsize(ckpt):,} "
+          "bytes")
+    evaluate.main(processed, cfg, ckpt, os.path.join(root, "eval"))
+    with open(os.path.join(root, "eval", label, "results.json")) as f:
+        results = json.load(f)
+    if not all(math.isfinite(results[k]) for k in ("mAP", "mGIoU")):
+        raise AssertionError(f"{label} evaluate.main: {results}")
+    artifact = os.path.join(root, f"{label}.pt2")
+    export.main(processed, cfg, ckpt, artifact, batch=1)
+    test = dict(config, train=dict(config["train"], batch_size=1))
+    inputs, _ = next(iter(load_dataset(
+        init_dataset(config["dataset"], src=processed, split="test",
+                     config=config), config=test, shuffle=False,
+        pad_last=True)))
+    inputs = to_device(inputs, torch.device("cuda"))
+    with torch.inference_mode():
+        got = export.load_exported(artifact).module()(inputs)
+        want = model(inputs)
+    worst = 0.0
+    for key in ("class", "center", "size", "angle"):
+        scale = want[key].abs().max().item()
+        err = (got[key] - want[key]).abs().max().item()
+        if not err <= TOL[torch.float32] * scale:
+            raise AssertionError(f"{label} artifact {key}: err {err:.3e} "
+                                 f"of {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return results, worst
+
+
+def phase_overfit():
+    """The learning path at the small config (``OVERFIT_RUNS``): the
+    fixture's raw tree prepared on the card (the radar kernels at 6
+    elevation bins, planes held against the plain version), 80 epochs of
+    tests/test_overfit_metrics.py's recipe through the trainer with the
+    hand kernels per run, each kernel run's first ``PLAIN_EPOCHS`` losses
+    held against a plain-core run from the same init, the floors held at
+    ``CPU_MET_FLOORS_NUDGED`` and read elsewhere, and ``evaluate.main`` and
+    ``export.main`` on a run's one checkpoint. Returns the launches of
+    the paths overfit_prepare, overfit and overfit_mm."""
+    root = tempfile.mkdtemp(prefix="dpft_overfit_")
+    paths = {"overfit_prepare": dict.fromkeys(KERNELS, 0),
+             "overfit": dict.fromkeys(KERNELS, 0),
+             "overfit_mm": dict.fromkeys(KERNELS, 0)}
+    try:
+        trees = {}
+        for two_class in (False, True):
+            tree = os.path.join(root, f"tree_{int(two_class)}")
+            cfg = os.path.join(root, f"prepare_{int(two_class)}.json")
+            with open(cfg, "w") as f:
+                json.dump(overfit_config(two_class), f)
+            t0 = time.perf_counter()
+            trees[two_class], launches, worst = _prepare_fixture(
+                tree, two_class, cfg)
+            n = sum(map(len, FIXTURE_IDS.values()))
+            want = dict.fromkeys(KERNELS, 0)
+            want.update(radar_reduce_ra=n, radar_reduce_ea=n)
+            if launches != want:
+                raise AssertionError(f"fixture prepare launched {launches}, "
+                                     f"expected {want}")
+            for k, v in launches.items():
+                paths["overfit_prepare"][k] += v
+            print(f"[overfit] prepare.main on cuda, fixture tree "
+                  f"({'two classes' if two_class else 'one class'}): {n} "
+                  f"cubes {FIXTURE_CUBE} in {time.perf_counter() - t0:.2f} "
+                  f"s; ra/ea vs plain max_abs_err {worst:.3e} "
+                  f"({FIXTURE_RADAR_TOL}, lookup exact); launches "
+                  f"{launches}")
+
+        held, read = [], []
+        for label, two_class, mm, seed in OVERFIT_RUNS:
+            config = overfit_config(two_class, mm, seed)
+            model, history, launches, seconds, readings = _overfit_run(
+                config, trees[two_class], seed)
+            path = "overfit_mm" if mm else "overfit"
+            for k, v in launches.items():
+                paths[path][k] += v
+            cpu_met = (label, seed) in CPU_MET_FLOORS
+            plain = _plain_history(config, trees[two_class], seed,
+                                   PLAIN_EPOCHS)
+            errs = [abs(a - b) / abs(b) for a, b in zip(history, plain)]
+            if len(errs) != PLAIN_EPOCHS or not all(
+                    e <= tol for e, tol in zip(errs, PLAIN_LOSS_RTOL)):
+                raise AssertionError(
+                    f"{label} seed {seed}: kernel losses {history[:10]} vs "
+                    f"plain {plain[:10]}: relative errs {errs}, tolerances "
+                    f"{PLAIN_LOSS_RTOL}")
+            missed = floor_failures(readings, history)
+            gated = (label, seed) in CPU_MET_FLOORS_NUDGED
+            (held if gated else read).append((label, seed, not missed))
+            print(f"[overfit] {label} seed {seed}: {len(history)} epochs in "
+                  f"{seconds:.1f} s; {floor_report(history, readings)}; "
+                  f"floors {'met' if not missed else 'missed'} ("
+                  + ("held: the CPU run met them, nudged too" if gated else
+                     "read: the CPU run met them, not nudged" if cpu_met
+                     else "read") + ");"
+                  f" loss vs plain core over {PLAIN_EPOCHS} epochs: "
+                  f"relative errs {[float(f'{e:.2e}') for e in errs]}; "
+                  f"launches {launches}")
+            if missed:
+                print(f"[overfit]   missed: {[m[0] for m in missed]}")
+            if gated and missed:
+                raise AssertionError(f"{label} seed {seed} missed {missed}")
+            if gated and not any(r[0] == label for r in held[:-1]):
+                results, err = _evaluate_and_export(
+                    root, trees[two_class], config, model, label)
+                print(f"[overfit] {label} seed {seed}: its one checkpoint "
+                      f"through evaluate.main: mAP {results['mAP']:.4f} "
+                      f"mGIoU {results['mGIoU']:.4f}; export.main's "
+                      f"artifact within {err:.3e} of the eager outputs")
+            del model
+        print(f"[overfit] floors held at {held}; read at {read}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
+def phase_overfit_flagship(dst, config):
+    """config/kradar.json at full width on the prepare phase's K-Radar-shape
+    tree ``dst``, whose labels are the recipe's two large boxes per frame:
+    the trainer from seed 0 for as many epochs as ``FLAGSHIP_OVERFIT_S``
+    allows, no checkpoint. Held: finite losses, the last epoch below half
+    the first, exact launches. Read: the floor readings on the first train
+    batch. Returns the launches of the training."""
+    from dpft_tpu_torch.evaluation.evaluator import to_device
+    from dpft_tpu_torch.evaluation.metric import build_metric
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.training import CentralizedTrainer
+
+    model = registry.build("dprt", config, device="cuda", seed=0)
+    loader, (batch, targets) = _train_loaders(config, dst)
+
+    class Budget:
+        """The loader until the budget is spent, then empty epochs."""
+
+        def __init__(self):
+            self.deadline = None
+
+        def __len__(self):
+            return len(loader)
+
+        def __iter__(self):
+            self.deadline = self.deadline or (time.perf_counter()
+                                              + FLAGSHIP_OVERFIT_S)
+            if time.perf_counter() < self.deadline:
+                yield from loader
+
+    # Epochs after the budget are empty and cost the trainer a millisecond
+    # each: an epoch of 2 steps takes about a second, so 1,000 is
+    # more than the budget holds.
+    trainer = CentralizedTrainer.from_config(
+        dict(config, train=dict(config["train"], epochs=1000)))
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.train(model, Budget(), dst=None)["history"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    batch = to_device(batch, torch.device("cuda"))
+    targets = to_device(targets, torch.device("cuda"))
+    with torch.inference_mode():
+        out = model(batch)
+        views = model.features(batch)
+    shapes = dict(zip(model.inputs, (s for _, s in views)))
+    steps = len(history) * len(loader)
+    expected = _expected_launches(config, shapes, steps, steps)
+    if launches != expected:
+        raise AssertionError(f"the flagship overfit launched {launches}, "
+                             f"expected {expected}")
+    if not (all(map(math.isfinite, history))
+            and history[-1] < 0.5 * history[0]):
+        raise AssertionError(f"flagship overfit losses {history[0]} -> "
+                             f"{history[-1]} over {len(history)} epochs")
+    readings = floor_readings(out, targets,
+                              trainer.loss_fn.match(out, targets),
+                              build_metric(config["evaluate"])(out, targets),
+                              False)
+    missed = floor_failures(readings, history)
+    print(f"[overfit_flagship] config/kradar.json on the K-Radar-shape tree "
+          f"({len(FRAME_IDS['train'])} train frames, two boxes each): "
+          f"{len(history)} epochs x "
+          f"{len(loader)} steps of B={config['train']['batch_size']} in "
+          f"{seconds:.1f} s; losses {[round(x, 3) for x in history[:3]]} ... "
+          f"{[round(x, 3) for x in history[-3:]]}; read, not held: "
+          f"{floor_report(history, readings)}; floors of the small recipe "
+          f"missed: {sorted({m[0] for m in missed})}; launches {launches}")
+    del model
+    return launches
+
+
 # The port's bench line against the root bench.py's, mode by mode: these
 # keys go, ``mfu`` and ``peak_tflops`` take the place of
 # ``mfu_vs_bf16_peak``, and the card and its activity come in.
@@ -4238,7 +4945,7 @@ BENCH_RUNS = (
     ("train B=4 f32", {"BENCH_MODE": "train", "BENCH_DTYPE": "float32",
                        "BENCH_FLOPS": "1", "BENCH_REPS": "3",
                        "BENCH_WARMUP": "2"}),
-    ("prepare", {"BENCH_MODE": "prepare"}))
+    ("prepare", {"BENCH_MODE": "prepare", "BENCH_PREPARE_BASELINE": "0"}))
 BENCH_SCALING_CELL = ("inference", "1:f32")
 
 
@@ -4437,21 +5144,26 @@ def main():
         config = json.load(f)
     model, view_shapes = _flagship_model(config)
 
-    fwd_report = phase_kernel_vs_plain(view_shapes)
-    phase_flagship(config, model)
+    fwd_report = _timed("kernel_vs_plain", phase_kernel_vs_plain,
+                        view_shapes)
+    _timed("flagship", phase_flagship, config, model)
     paths = {}
-    paths["serve"], flops = phase_serve(config, model, view_shapes)
+    paths["serve"], flops = _timed("serve", phase_serve, config, model,
+                                   view_shapes)
     _assert_full_float32("the serve phase")
-    paths["export"] = phase_export(config, model, view_shapes)
-    bwd_report = phase_bwd_vs_plain(view_shapes)
-    phase_train_step_vs_plain(config, model)
-    phase_step_backward_twice(config, model)
+    from dpft_tpu_torch.models import registry
+    paths["export"] = _timed("export", phase_export, config, model,
+                             view_shapes)
+    bwd_report = _timed("bwd_vs_plain", phase_bwd_vs_plain, view_shapes)
+    _timed("train_step_vs_plain", phase_train_step_vs_plain, config, model)
+    _timed("step_backward_twice", phase_step_backward_twice, config, model)
     # On the initial weights, as the step above: the train phases leave
     # weights on which one step's gradients are ill-conditioned.
-    mm_config, mm_model = phase_mm_model(config, model)
-    paths["train"] = phase_train(config, model, view_shapes)
+    mm_config, mm_model = _timed("mm_model", phase_mm_model, config, model)
+    paths["train"] = _timed("train", phase_train, config, model,
+                            view_shapes)
     _assert_full_float32("the train phase")
-    phase_train_timing(config, model)
+    _timed("train_timing", phase_train_timing, config, model)
     paths.update(_timed("data_parallel", phase_data_parallel, config,
                         view_shapes))
     paths.update(_timed("tensor_parallel", phase_tensor_parallel, config,
@@ -4459,35 +5171,49 @@ def main():
     paths.update(_timed("remat", phase_remat, config))
     _timed("checkpoint_saver", phase_checkpoint_saver, config, model)
 
-    mm_fwd_report, mm_bwd_report = phase_mm_vs_plain(view_shapes)
-    phase_core_calls(view_shapes)
-    paths["serve_mm"], mm_flops = phase_serve(mm_config, mm_model,
-                                              view_shapes, label="serve_mm")
+    mm_fwd_report, mm_bwd_report = _timed("mm_vs_plain", phase_mm_vs_plain,
+                                          view_shapes)
+    _timed("core_calls", phase_core_calls, view_shapes)
+    paths["serve_mm"], mm_flops = _timed("serve_mm", phase_serve, mm_config,
+                                         mm_model, view_shapes,
+                                         label="serve_mm")
     if mm_flops != flops:
         raise AssertionError(f"FLOPS {mm_flops} under \"mm\", {flops} under "
                              "the default backend")
     print(f"[serve_mm] FLOPS under \"mm\" = the default's, {flops:,}, ok")
-    paths["export_mm"] = _timed("export_mm", phase_export, mm_config,
-                                mm_model, view_shapes, label="export_mm",
+    export_config = cut_depth_config(mm_config)
+    export_model = registry.build(export_config["model"]["name"],
+                                  export_config, device="cuda", seed=0)
+    paths["export_mm"] = _timed("export_mm", phase_export, export_config,
+                                export_model, view_shapes, label="export_mm",
                                 dtypes=("float32",))
-    paths["train_mm"] = phase_train(mm_config, mm_model, view_shapes,
-                                    label="train_mm", epochs=1, n_train=2,
-                                    n_val=1, resume=False)
-    _time_forwards(mm_config, mm_model, "flagship_mm")
-    phase_train_timing(mm_config, mm_model, label="train_mm")
-    phase_trained_steps(config, model, mm_model)
-    ra_report, ea_report = phase_radar_vs_plain()
-    phase_launch_counts(config, {"default": model, "mm": mm_model})
-    phase_kernel_times(view_shapes)
-    phase_msda_call_times(view_shapes)
-    phase_radar_kernel_times()
+    del export_model
+    paths["train_mm"] = _timed("train_mm", phase_train, mm_config, mm_model,
+                               view_shapes, label="train_mm", epochs=1,
+                               n_train=2, n_val=1, resume=False)
+    _timed("forwards_mm", _time_forwards, mm_config, mm_model,
+           "flagship_mm")
+    _timed("train_timing_mm", phase_train_timing, mm_config, mm_model,
+           label="train_mm")
+    _timed("trained_steps", phase_trained_steps, config, model, mm_model)
+    ra_report, ea_report = _timed("radar_vs_plain", phase_radar_vs_plain)
+    _timed("launch_counts", phase_launch_counts, config,
+           {"default": model, "mm": mm_model})
+    _timed("kernel_times", phase_kernel_times, view_shapes)
+    library = _timed("msda_call_times", phase_msda_call_times, view_shapes)
+    # The kernels' own times are of the camera view at B=1 (forward) and
+    # B=4 (backward); so are their library times.
+    fwd_report["library_ms"] = library["fwd", "camera_mono", B1]
+    bwd_report["library_ms"] = library["bwd", "camera_mono", B_TRAIN]
+    _timed("radar_kernel_times", phase_radar_kernel_times)
     del mm_model
     torch.cuda.empty_cache()
     paths.update(_timed("families", phase_families, config))
     paths.update(_timed("configs", phase_configs))
     _timed("native_radar", phase_native_radar)
+    paths.update(_timed("overfit", phase_overfit))
     paths["prepare"] = _timed("prepare and reference_ckpt", phase_prepare,
-                              config_path, config, model)
+                              config_path, config, model, paths)
     _timed("bench", phase_bench, flops)
     # `launches` is the count on the kernel's own main path.
     reports = [(fwd_report, "train"), (bwd_report, "train"),
