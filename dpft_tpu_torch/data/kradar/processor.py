@@ -17,6 +17,14 @@ NumPy; `use_device=False` selects the NumPy path and
 
 Fixed reference bug (documented delta): the reference loads os2.npy from
 the os1 PCD (processor.py:686); here os2.npy comes from the os2 file.
+
+Spans (``utils/profiling.py``): ``dpft.prepare.sample`` (its frame id in
+the trace's ``args``) holds ``dpft.prepare.labels`` (boxes, description,
+calibrations), ``.camera``, ``.radar.read`` (the ``.mat``),
+``.radar.to_device``, ``.radar.reduce``, ``.radar.to_host``, ``.lidar``
+and ``.write``. The pool's threads record when the caller does. The
+cube's copy to the device and the planes' two copies back count as host
+syncs (``dpft.host_syncs``).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from dpft_tpu_torch.ops.radar_reduce import (reduce_tesseract,
                                              reduce_tesseract_np)
 from dpft_tpu_torch.ops.radar_reduce_native import reduce_tesseract_native
 from dpft_tpu_torch.utils.device import resolve_device
+from dpft_tpu_torch.utils.profiling import count, enabled, in_thread, span
 
 DEFAULT_CATEGORIES = {
     "Sedan": 0, "Bus or Truck": 1, "Motorcycle": 2, "Bicycle": 3,
@@ -270,8 +279,9 @@ class KRadarProcessor:
         on the host unless ``cast`` is false. ``loadmat`` returns float64 in
         MATLAB's column-major order (doppler fastest); the cast keeps it."""
         from scipy.io import loadmat
-        tesseract = loadmat(filename)["arrDREA"]
-        return tesseract.astype(self.dtype) if cast else tesseract
+        with span("dpft.prepare.radar.read"):
+            tesseract = loadmat(filename)["arrDREA"]
+            return tesseract.astype(self.dtype) if cast else tesseract
 
     def get_radar_data(self, filename: str):
         """(ra, ea) dual-plane features, reduced on ``self.device``; with
@@ -293,9 +303,15 @@ class KRadarProcessor:
             ra, ea = reduce_tesseract_np(self.get_radar_tesseract(filename))
             return ra.astype(self.dtype), ea.astype(self.dtype)
         tesseract = self.get_radar_tesseract(filename, cast=False)
-        ra, ea = reduce_tesseract(torch.from_numpy(tesseract).to(self.device))
-        return (ra.cpu().numpy().astype(self.dtype, copy=False),
-                ea.cpu().numpy().astype(self.dtype, copy=False))
+        with span("dpft.prepare.radar.to_device"):
+            count("dpft.host_syncs")
+            cube = torch.from_numpy(tesseract).to(self.device)
+        with span("dpft.prepare.radar.reduce"):
+            ra, ea = reduce_tesseract(cube)
+        with span("dpft.prepare.radar.to_host"):
+            count("dpft.host_syncs", 2)
+            return (ra.cpu().numpy().astype(self.dtype, copy=False),
+                    ea.cpu().numpy().astype(self.dtype, copy=False))
 
     def map_description(self, description: List[str]) -> np.ndarray:
         return np.array([
@@ -310,54 +326,72 @@ class KRadarProcessor:
 
     def prepare_sample(self, sample: Dict[str, str], description: List[str],
                        dst: str) -> None:
+        with span("dpft.prepare.sample", id=osp.basename(dst)):
+            self._prepare_sample(sample, description, dst)
+
+    def _prepare_sample(self, sample: Dict[str, str],
+                        description: List[str], dst: str) -> None:
         import cv2
 
-        boxes = self.get_boxes(sample["label"])
-        if not boxes.size:
-            return  # samples without boxes are skipped entirely
+        with span("dpft.prepare.labels"):
+            boxes = self.get_boxes(sample["label"])
+            if not boxes.size:
+                return  # samples without boxes are skipped entirely
 
-        desc = self.map_description(description)
+            desc = self.map_description(description)
 
-        ra_to_lidar, ea_to_lidar = self.get_radar_calibration(
-            sample["calib_radar_lidar"])
-        mono_to_lidar, stereo_to_lidar = self.get_camera_calibration(
-            sample["calib_camera_lidar"])
+            ra_to_lidar, ea_to_lidar = self.get_radar_calibration(
+                sample["calib_radar_lidar"])
+            mono_to_lidar, stereo_to_lidar = self.get_camera_calibration(
+                sample["calib_camera_lidar"])
 
-        radar_to_lidar = self.get_translation(sample["calib_radar_lidar"])
-        boxes = self._transform_boxes(boxes, radar_to_lidar)
+            radar_to_lidar = self.get_translation(sample["calib_radar_lidar"])
+            boxes = self._transform_boxes(boxes, radar_to_lidar)
 
-        left, right = self.get_camera_data(sample["camera_front"])
+        with span("dpft.prepare.camera"):
+            left, right = self.get_camera_data(sample["camera_front"])
         ra, ea = self.get_radar_data(sample["radar_tesseract"])
-        os1 = self.get_lidar_data(sample["os1"])
-        os2 = self.get_lidar_data(sample["os2"])  # fixed: reference read os1
+        with span("dpft.prepare.lidar"):
+            os1 = self.get_lidar_data(sample["os1"])
+            # fixed: the reference read os1
+            os2 = self.get_lidar_data(sample["os2"])
 
-        os.makedirs(dst, exist_ok=True)
-        jpg_quality = [int(cv2.IMWRITE_JPEG_QUALITY), 98]
-        np.save(osp.join(dst, "labels.npy"), boxes, allow_pickle=False)
-        np.save(osp.join(dst, "description.npy"), desc, allow_pickle=False)
-        cv2.imwrite(osp.join(dst, "mono.jpg"), left, jpg_quality)
-        np.save(osp.join(dst, "mono_info.npy"), mono_to_lidar,
-                allow_pickle=False)
-        cv2.imwrite(osp.join(dst, "stereo.jpg"), right, jpg_quality)
-        np.save(osp.join(dst, "stereo_info.npy"), stereo_to_lidar,
-                allow_pickle=False)
-        np.save(osp.join(dst, "ra.npy"), ra, allow_pickle=False)
-        np.save(osp.join(dst, "ra_info.npy"), ra_to_lidar, allow_pickle=False)
-        np.save(osp.join(dst, "ea.npy"), ea, allow_pickle=False)
-        np.save(osp.join(dst, "ea_info.npy"), ea_to_lidar, allow_pickle=False)
-        np.save(osp.join(dst, "os1.npy"), os1, allow_pickle=False)
-        np.save(osp.join(dst, "os2.npy"), os2, allow_pickle=False)
+        with span("dpft.prepare.write"):
+            os.makedirs(dst, exist_ok=True)
+            jpg_quality = [int(cv2.IMWRITE_JPEG_QUALITY), 98]
+            np.save(osp.join(dst, "labels.npy"), boxes, allow_pickle=False)
+            np.save(osp.join(dst, "description.npy"), desc, allow_pickle=False)
+            cv2.imwrite(osp.join(dst, "mono.jpg"), left, jpg_quality)
+            np.save(osp.join(dst, "mono_info.npy"), mono_to_lidar,
+                    allow_pickle=False)
+            cv2.imwrite(osp.join(dst, "stereo.jpg"), right, jpg_quality)
+            np.save(osp.join(dst, "stereo_info.npy"), stereo_to_lidar,
+                    allow_pickle=False)
+            np.save(osp.join(dst, "ra.npy"), ra, allow_pickle=False)
+            np.save(osp.join(dst, "ra_info.npy"), ra_to_lidar,
+                    allow_pickle=False)
+            np.save(osp.join(dst, "ea.npy"), ea, allow_pickle=False)
+            np.save(osp.join(dst, "ea_info.npy"), ea_to_lidar,
+                    allow_pickle=False)
+            np.save(osp.join(dst, "os1.npy"), os1, allow_pickle=False)
+            np.save(osp.join(dst, "os2.npy"), os2, allow_pickle=False)
 
     def prepare_sequence(self, sequence: List[str], dst: str) -> None:
         sequence_paths = self.get_sequence_paths(sequence)
         if not sequence_paths:
             return
         description = sequence_paths.pop("description")
+        # The profiler's state is per thread: the workers record as the
+        # caller does.
+        recording = enabled()
+
+        def work(item) -> None:
+            with in_thread(recording):
+                self.prepare_sample(item[1], description,
+                                    osp.join(dst, item[0]))
+
         with ThreadPoolExecutor(max_workers=self.workers) as pool:
-            list(pool.map(
-                lambda item: self.prepare_sample(
-                    item[1], description, osp.join(dst, item[0])),
-                sequence_paths.items()))
+            list(pool.map(work, sequence_paths.items()))
 
     def prepare(self, src: str, dst: str) -> None:
         dataset_paths = self.get_dataset_paths(src)

@@ -16,6 +16,9 @@ exporter and writes ``results.json``: the same files as one process. The
 latency is that of the DP forward (the slowest rank's); the FLOPs are
 counted on rank 0 for one forward of the first node batch (every rank's
 rows of it), as one process counts them.
+
+Each read-back of a tensor to the host counts as a host sync
+(``dpft.host_syncs``, ``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -130,6 +133,7 @@ class CentralizedEvaluator:
                 out = model(to_device(batch, device))
                 if parallel.world_size() > 1:
                     out = parallel.gather_rows(out)
+                    profiling.count("dpft.host_syncs", len(targets))
                     targets = {k: v.cpu().numpy() for k, v in
                                parallel.gather_rows(to_device(
                                    targets, device)).items()}
@@ -137,10 +141,12 @@ class CentralizedEvaluator:
                         continue
                 if self.metric is not None:
                     metrics = self.metric(out, to_device(targets, device))
+                    profiling.count("dpft.host_syncs", len(metrics))
                     for k, v in metrics.items():
                         sums[k] = sums.get(k, 0.0) + float(v)
                 n += 1
                 if self.export_fn is not None and dst is not None:
+                    profiling.count("dpft.host_syncs", len(out))
                     self.export_fn({k: v.cpu().numpy() for k, v in out.items()},
                                    targets, sample_step, dst)
                 if "sample_mask" in targets:  # loader pad_last policy
@@ -169,6 +175,7 @@ class CentralizedEvaluator:
         # Data parallel: the slowest rank's.
         stats = parallel.gather_rows({"t": torch.tensor(
             [[mean, std]], dtype=torch.float64, device=device)})["t"]
+        profiling.count("dpft.host_syncs")
         mean, std = stats[stats[:, 0].argmax()].tolist()
         return {"Inference_time_mean_ms": mean, "Inference_time_std_ms": std}
 

@@ -21,6 +21,12 @@ less memory for more FLOPs, with the same gradients and the same
 state_dict keys. The recompute leaves BatchNorm's running statistics and
 counters as the forward left them (JAX's remat commits ``batch_stats``
 once).
+
+Spans (``utils/profiling.py``): ``dpft.forward`` holds ``dpft.frontend``
+(``features``; per view ``v`` in input order
+``dpft.frontend.view<v>.backbone`` / ``.neck`` / ``.embedding``) and
+``dpft.decoder`` (``dpft.decoder.querent`` and the fuser's spans). Under
+remat the recomputed backbone opens its span again inside the backward.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from dpft_tpu_torch.models.heads import build_detection_head
 from dpft_tpu_torch.models.layers.common import get_compute_dtype
 from dpft_tpu_torch.models.necks import build_neck
 from dpft_tpu_torch.models.queries import build_querent
+from dpft_tpu_torch.utils.profiling import span
 # Moved to utils/profiling.py; importable from here as before.
 from dpft_tpu_torch.utils.profiling import parameter_count  # noqa: F401
 
@@ -60,13 +67,18 @@ class DPFT(nn.Module):
         self.fuser = fuser
         self.compute_dtype = compute_dtype
         self.remat = remat
+        # Per view: the spans of its backbone, neck and embedding.
+        self._spans = [tuple(f"dpft.frontend.view{v}.{part}" for part in
+                             ("backbone", "neck", "embedding"))
+                       for v in range(len(self.inputs))]
 
-    def _backbone(self, name: str, raw: torch.Tensor) -> Dict[str, Any]:
+    def _backbone(self, name: str, raw: torch.Tensor,
+                  label: str) -> Dict[str, Any]:
         backbone = self.backbones[name]
         if not (self.remat and torch.is_grad_enabled()):
-            return backbone(raw)
+            return _spanned(label, backbone, raw)
         return torch.utils.checkpoint.checkpoint(
-            backbone, raw, use_reentrant=False,
+            _spanned, label, backbone, raw, use_reentrant=False,
             context_fn=lambda: (contextlib.nullcontext(),
                                 _buffers_kept(backbone)))
 
@@ -74,30 +86,46 @@ class DPFT(nn.Module):
         """Per view: the embedded FPN levels, flattened to (B, Len, C), and
         their (h, w) shapes in level order."""
         views = []
-        for name in self.inputs:
-            raw = batch[name].permute(0, 3, 1, 2)  # NHWC -> NCHW view
-            feats = self._backbone(name, raw)
-            if self.skiplinks.get(name, False):
-                feats = {"0": raw, **feats}  # raw data becomes level '0'
-            feats = self.embeddings[name](self.necks[name](feats))
-            shapes = tuple((t.shape[2], t.shape[3]) for t in feats.values())
-            flat = torch.cat([t.permute(0, 2, 3, 1).reshape(
-                t.shape[0], -1, t.shape[1]) for t in feats.values()], dim=1)
-            views.append((flat, shapes))
+        with span("dpft.frontend"):
+            for name, (backbone, neck, embedding) in zip(self.inputs,
+                                                         self._spans):
+                raw = batch[name].permute(0, 3, 1, 2)  # NHWC -> NCHW view
+                feats = self._backbone(name, raw, backbone)
+                if self.skiplinks.get(name, False):
+                    feats = {"0": raw, **feats}  # raw data becomes level '0'
+                with span(neck):
+                    feats = self.necks[name](feats)
+                with span(embedding):
+                    feats = self.embeddings[name](feats)
+                    shapes = tuple((t.shape[2], t.shape[3])
+                                   for t in feats.values())
+                    flat = torch.cat([t.permute(0, 2, 3, 1).reshape(
+                        t.shape[0], -1, t.shape[1]) for t in feats.values()],
+                        dim=1)
+                views.append((flat, shapes))
         return views
 
     def forward(self, batch: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         device = batch[self.inputs[0]].device
-        with torch.autocast(device.type, dtype=self.compute_dtype,
-                            enabled=self.compute_dtype != torch.float32):
+        with span("dpft.forward"), torch.autocast(
+                device.type, dtype=self.compute_dtype,
+                enabled=self.compute_dtype != torch.float32):
             views = self.features(batch)
-            B = batch[self.inputs[0]].shape[0]
-            out = self.querent(B, device)
-            projection = [(batch[f"label_to_{n}_t"], batch[f"label_to_{n}_p"])
-                          for n in self.inputs]
-            shape = [batch[f"{n}_shape"][:, :2].float() for n in self.inputs]
-            return self.fuser(views, shape, projection, out)
+            with span("dpft.decoder"):
+                B = batch[self.inputs[0]].shape[0]
+                with span("dpft.decoder.querent"):
+                    out = self.querent(B, device)
+                projection = [(batch[f"label_to_{n}_t"],
+                               batch[f"label_to_{n}_p"]) for n in self.inputs]
+                shape = [batch[f"{n}_shape"][:, :2].float()
+                         for n in self.inputs]
+                return self.fuser(views, shape, projection, out)
+
+
+def _spanned(label: str, module: nn.Module, x: torch.Tensor) -> Any:
+    with span(label):
+        return module(x)
 
 
 @contextlib.contextmanager

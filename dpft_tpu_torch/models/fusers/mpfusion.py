@@ -19,6 +19,12 @@ The MSDA realization (``msda_backend``: ``"gather"`` or ``"mm"``, see
 ``ops.deform_attn``) is handed down to every ``MSDeformAttn`` as an
 attribute; ``build_mpfusion`` reads it from the config key
 ``fuser.pallas_msda``, the JAX package's.
+
+Spans (``utils/profiling.py``), per iteration ``i`` and view ``v``:
+``dpft.decoder.fusion<i>.reference_points`` and ``.head`` (IMPFusion),
+``.view<v>.self_attn`` / ``.msda`` / ``.ffn`` (MLFusion) and
+``.reduction`` (MPFusion, the stack of the views included). Each module
+takes its spans' prefix as ``span_prefix``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from dpft_tpu_torch.models.layers.common import get_activation
 from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
 from dpft_tpu_torch.models.layers.unary import Unary1d
 from dpft_tpu_torch.ops.transforms import cart2spher
+from dpft_tpu_torch.utils.profiling import span
 
 REDUCTIONS = ("mean", "max", "unary", "linear", "cross-attn", "ffn")
 
@@ -54,8 +61,11 @@ class MLFusion(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 1024,
                  n_levels: int = 1, n_heads: int = 1, n_points: int = 1,
                  activation: str = "ReLU", dropout: float = 0.0,
-                 norm: bool = False, msda_backend: str = "gather"):
+                 norm: bool = False, msda_backend: str = "gather",
+                 span_prefix: str = "dpft.decoder.fusion0.view0"):
         super().__init__()
+        self._spans = tuple(f"{span_prefix}.{part}"
+                            for part in ("self_attn", "msda", "ffn"))
         self.self_attn = MultiheadAttention(d_model, n_heads, dropout=dropout)
         self.ms_deform_attn = MSDeformAttn(d_model, n_levels, n_heads,
                                            n_points, backend=msda_backend)
@@ -80,23 +90,28 @@ class MLFusion(nn.Module):
             reference_points: (B, N, 2) normalized (u, v).
             query_positions: (B, N, d_model) query positional embedding.
         """
-        qk = with_pos_embed(query, query_positions)
-        out = query + self.dropout(self.self_attn(qk, qk, query))
-        if self.use_norm:
-            out = self.norm1(out)
+        self_attn, msda, ffn = self._spans
+        with span(self_attn):
+            qk = with_pos_embed(query, query_positions)
+            out = query + self.dropout(self.self_attn(qk, qk, query))
+            if self.use_norm:
+                out = self.norm1(out)
 
-        flat, shapes = view
-        ref = reference_points[:, :, None, :].expand(-1, -1, len(shapes), -1)
-        cross = self.ms_deform_attn(with_pos_embed(out, query_positions), ref,
-                                    flat, shapes)
-        out = out + self.dropout(cross)
-        if self.use_norm:
-            out = self.norm2(out)
+        with span(msda):
+            flat, shapes = view
+            ref = reference_points[:, :, None, :].expand(-1, -1, len(shapes),
+                                                         -1)
+            cross = self.ms_deform_attn(with_pos_embed(out, query_positions),
+                                        ref, flat, shapes)
+            out = out + self.dropout(cross)
+            if self.use_norm:
+                out = self.norm2(out)
 
-        h = self.ffn2(self.dropout(self.act(self.ffn1(out))))
-        out = out + self.dropout(h)
-        if self.use_norm:
-            out = self.norm3(out)
+        with span(ffn):
+            h = self.ffn2(self.dropout(self.act(self.ffn1(out))))
+            out = out + self.dropout(h)
+            if self.use_norm:
+                out = self.norm3(out)
         return out
 
 
@@ -109,10 +124,12 @@ class MPFusion(nn.Module):
                  n_points: Optional[Sequence[int]] = None,
                  activation: str = "ReLU", dropout: float = 0.0,
                  norm: bool = False, reduction: str = "mean",
-                 msda_backend: str = "gather"):
+                 msda_backend: str = "gather",
+                 span_prefix: str = "dpft.decoder.fusion0"):
         super().__init__()
         if reduction not in REDUCTIONS:
             raise ValueError(f"Invalid reduction: {reduction}")
+        self._span = f"{span_prefix}.reduction"
         n_levels = n_levels or [1] * m_views
         n_heads = n_heads or [1] * m_views
         n_points = n_points or [1] * m_views
@@ -121,7 +138,8 @@ class MPFusion(nn.Module):
         self.ml_fusion_layers = nn.ModuleDict({
             f"ms_deform_attn{v}": MLFusion(
                 d_model, d_ffn, n_levels[v], n_heads[v], n_points[v],
-                activation, dropout, norm, msda_backend)
+                activation, dropout, norm, msda_backend,
+                span_prefix=f"{span_prefix}.view{v}")
             for v in range(m_views)
         })
         cv = d_model * m_views
@@ -148,6 +166,11 @@ class MPFusion(nn.Module):
                 ) -> torch.Tensor:
         outs = [layer(query, views[v], reference_points[v], query_positions)
                 for v, layer in enumerate(self.ml_fusion_layers.values())]
+        with span(self._span):
+            return self._reduce(query, outs, query_positions)
+
+    def _reduce(self, query: torch.Tensor, outs: List[torch.Tensor],
+                query_positions: Optional[torch.Tensor]) -> torch.Tensor:
         queries = torch.stack(outs, dim=-1)  # (B, N, C, V)
         B, N = query.shape[:2]
         # (B, N, C, V) -> (B, N, C*V), c-major / v-minor as the reference.
@@ -227,9 +250,12 @@ class IMPFusion(nn.Module):
         self.mpfusion = nn.ModuleDict({
             f"fusion{i}": MPFusion(m_views, d_model, d_ffn, n_levels,
                                    n_heads, n_points, activation, dropout,
-                                   norm, reduction, msda_backend)
+                                   norm, reduction, msda_backend,
+                                   span_prefix=f"dpft.decoder.fusion{i}")
             for i in range(i_iter)
         })
+        self._spans = [(f"dpft.decoder.fusion{i}.reference_points",
+                        f"dpft.decoder.fusion{i}.head") for i in range(i_iter)]
         # Independent head per iteration (the reference deep-copies it).
         self.heads = nn.ModuleList(copy.deepcopy(head) for _ in range(i_iter))
         self.query = nn.Parameter(torch.empty(n_queries, d_model))
@@ -253,13 +279,16 @@ class IMPFusion(nn.Module):
         B = out["center"].shape[0]
         query = self.query[None].expand(B, -1, -1)
         query_pos = self.query_embedding.weight[None].expand(B, -1, -1)
-        for fusion, head in zip(self.mpfusion.values(), self.heads):
-            reference_points = [
-                get_reference_points(out["center"], t, p, s)
-                for (t, p), s in zip(projection, shape)
-            ]
+        for fusion, head, (points, refine) in zip(
+                self.mpfusion.values(), self.heads, self._spans):
+            with span(points):
+                reference_points = [
+                    get_reference_points(out["center"], t, p, s)
+                    for (t, p), s in zip(projection, shape)
+                ]
             query = fusion(query, views, reference_points, query_pos)
-            out = head(query, out)
+            with span(refine):
+                out = head(query, out)
         return out
 
 

@@ -23,6 +23,7 @@ import torch.nn as nn
 
 from dpft_tpu_torch.models.layers.common import xavier_uniform_
 from dpft_tpu_torch.ops.deform_attn import ms_deform_attn_core
+from dpft_tpu_torch.utils.profiling import count
 
 
 def grid_offset_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -100,6 +101,7 @@ class MSDeformAttn(nn.Module):
                torch.is_inference_mode_enabled())
         normalizer = self._normalizers.get(key)
         if normalizer is None:
+            count("dpft.host_syncs")  # a pageable copy to the device
             normalizer = torch.tensor([(w, h) for h, w in spatial_shapes],
                                       dtype=torch.float32, device=query.device)
             self._normalizers[key] = normalizer

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from dpft_tpu_torch.utils.profiling import count
+
 # Unit-box corner signs for (x, y, z) in the vertex order above.
 _X_SIGNS = (-1.0, 1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0)
 _Y_SIGNS = (-1.0, -1.0, 1.0, 1.0, -1.0, -1.0, 1.0, 1.0)
@@ -25,6 +27,7 @@ _Z_SIGNS = (-1.0, -1.0, -1.0, -1.0, 1.0, 1.0, 1.0, 1.0)
 
 
 def _signs(values, like: torch.Tensor) -> torch.Tensor:
+    count("dpft.host_syncs")  # a pageable copy to the device
     return torch.tensor(values, dtype=like.dtype, device=like.device)
 
 
@@ -77,6 +80,7 @@ def get_minimum_enclosing_box_corners(boxes1: torch.Tensor,
                        boxes2.amax(-2)[..., None, :, :])
     cols = []
     for axis, signs in enumerate((_X_SIGNS, _Y_SIGNS, _Z_SIGNS)):
+        count("dpft.host_syncs")  # a pageable copy to the device
         pick = torch.tensor([s > 0 for s in signs], device=lo.device)
         cols.append(torch.where(pick, hi[..., axis:axis + 1],
                                 lo[..., axis:axis + 1]))

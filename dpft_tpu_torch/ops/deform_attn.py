@@ -63,6 +63,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from dpft_tpu_torch.ops import kernels
+from dpft_tpu_torch.utils.profiling import count
 
 Shapes = Sequence[Tuple[int, int]]
 
@@ -304,6 +305,7 @@ def _level_sizes(spatial_shapes: Tuple[Tuple[int, int], ...],
                  device: torch.device) -> torch.Tensor:
     """(L, 2) float32 (w, h) of every level, on ``device``. Made outside
     inference mode, so that one table serves inference and autograd."""
+    count("dpft.host_syncs")  # a pageable copy to the device, once per key
     with torch.inference_mode(False):
         return torch.tensor([(w, h) for h, w in spatial_shapes],
                             dtype=torch.float32, device=device)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from dpft_tpu_torch.ops import boxes as bbox
+from dpft_tpu_torch.utils.profiling import count
 
 _EPS = 1e-4  # validity-check tolerance
 # Geometric predicate tolerance. The clipping quads are recentered on their
@@ -39,6 +40,7 @@ _BOX_TRIANGLES = ((0, 1, 2), (0, 3, 2), (4, 5, 6), (4, 6, 7), (1, 5, 6),
 
 
 def _faces(corners: torch.Tensor, table) -> torch.Tensor:
+    count("dpft.host_syncs")  # a pageable copy to the device
     index = torch.tensor(table, device=corners.device)
     return corners[..., index, :]  # (..., F, K, 3)
 

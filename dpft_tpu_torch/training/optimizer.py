@@ -5,15 +5,17 @@ and hyperparameters (with torch's defaults) onto optax. Here the names are
 the torch classes themselves. Gradient accumulation
 (``train.accumulate_steps``, k) is done by the trainer: each of k
 micro-batches adds loss / k to the gradients, so one update applies their
-mean, as optax.MultiSteps does.
+mean, as optax.MultiSteps does. Every optimizer the factory makes puts its
+``step()`` in the span ``dpft.train.optimizer`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Dict, Iterable
 
 import torch
+
+from dpft_tpu_torch.utils.profiling import step_span
 
 _OPTIMIZERS = {
     "adamw": torch.optim.AdamW,  # weight_decay defaults to 1e-2
@@ -37,7 +39,11 @@ def build_optimizer(name: str, **config: Any
     kwargs["lr"] = float(kwargs.get("lr", 1e-3))
     if "betas" in kwargs:
         kwargs["betas"] = tuple(kwargs["betas"])
-    return functools.partial(cls, **kwargs)
+
+    def make(params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+        return step_span(cls(params, **kwargs), "dpft.train.optimizer")
+
+    return make
 
 
 def accumulate_steps(config: Dict[str, Any]) -> int:

@@ -48,6 +48,12 @@ parallel ranks above are the 'data' sub-group. The optimizer is built on
 the sharded parameters; its saved state and the checkpoint are gathered
 whole to rank 0 in the single-process form, and a saved state loads into
 the sharded optimizer.
+
+Spans (``utils/profiling.py``): ``dpft.train.step`` holds
+``dpft.train.forward``, ``.match``, ``.loss``, ``.metric``, ``.gate`` (the
+scalars and their read-back to the host) and ``.backward``; the optimizer's
+step is ``dpft.train.optimizer`` (``training/optimizer.py``). The counter
+``dpft.host_syncs`` counts the read-backs of the gate.
 """
 
 from __future__ import annotations
@@ -70,6 +76,7 @@ from dpft_tpu_torch.training.optimizer import (accumulate_steps,
                                                build_optimizer)
 from dpft_tpu_torch.training.scheduler import (as_step_schedule,
                                                build_scheduler)
+from dpft_tpu_torch.utils import profiling
 
 
 def now_timestamp() -> str:
@@ -159,6 +166,7 @@ class CentralizedTrainer:
                               *(torch.as_tensor(v, device=total.device)
                                 for v in metrics.values())])
         if parallel.data_world_size() == 1:
+            profiling.count("dpft.host_syncs")
             return dict(zip(names, values.tolist())), 1.0
         mask = targets.get("sample_mask")
         count = (mask.sum() if mask is not None
@@ -175,6 +183,7 @@ class CentralizedTrainer:
                                            count.reshape(1)]))
         total_count = sums[-1].clamp_min(1.0)
         values = sums[:-1] / torch.where(mean, total_count, 1.0)
+        profiling.count("dpft.host_syncs", 2 if loss_mean else 1)
         share = (count / total_count).item() if loss_mean else 1.0
         return (dict(zip(names, values.tolist())),
                 share * parallel.data_world_size())
@@ -188,16 +197,24 @@ class CentralizedTrainer:
         Returns the step's scalars. Under data parallelism ``model`` is
         the sharded model (``parallel.distribute``), and loss and gate
         are the global batch's."""
-        model.train()
-        out = model(batch)
-        indices = (self.loss_fn.match(out, targets)
-                   if self.loss_fn.use_assigner else None)
-        total, losses = self.loss_fn(out, targets, indices=indices)
-        metrics = self.metric(out, targets) if self.metric else {}
-        scalars, share = self._scalars(total, losses, metrics, targets)
-        if scalars["loss"] > 0:  # the reference's update gate
-            (total * (scale * share)).backward()
-        return scalars
+        with profiling.span("dpft.train.step"):
+            model.train()
+            with profiling.span("dpft.train.forward"):
+                out = model(batch)
+            with profiling.span("dpft.train.match"):
+                indices = (self.loss_fn.match(out, targets)
+                           if self.loss_fn.use_assigner else None)
+            with profiling.span("dpft.train.loss"):
+                total, losses = self.loss_fn(out, targets, indices=indices)
+            with profiling.span("dpft.train.metric"):
+                metrics = self.metric(out, targets) if self.metric else {}
+            with profiling.span("dpft.train.gate"):
+                scalars, share = self._scalars(total, losses, metrics,
+                                               targets)
+            if scalars["loss"] > 0:  # the reference's update gate
+                with profiling.span("dpft.train.backward"):
+                    (total * (scale * share)).backward()
+            return scalars
 
     @torch.no_grad()
     def eval_step(self, model: torch.nn.Module,

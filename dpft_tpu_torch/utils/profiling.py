@@ -22,14 +22,33 @@ Not ported:
   accounting has no eager counterpart. The peak comes from
   ``torch.cuda.max_memory_allocated`` after
   ``torch.cuda.reset_peak_memory_stats`` instead.
+
+Spans and counters (no counterpart in the JAX package). The program opens
+``span(name)`` at the boundaries of its layers and calls ``count(name)``
+where the host waits for the card. Both record only while a
+``torch.profiler`` records on the calling thread (``trace`` below, or any
+other profiler window); otherwise a span is one check and a shared
+do-nothing context manager, with no range, clock read or allocation. A
+recording span opens ``torch.profiler.record_function(name)``, so that it
+is a range of the Chrome trace on the device trace's clock, reads
+``time.perf_counter_ns`` at both ends and adds its duration to its name's
+totals (``span_totals``): the calls, the host seconds, and the self
+seconds, the part of its interval that no child span on the same thread
+covers. The totals and counters cover one profiler session: they are
+zeroed when the main thread first finds the profiler on after it was off,
+and when ``trace`` starts. Worker threads do not see the caller's profiler:
+a pool hands them the caller's state with ``in_thread(enabled())``. Their
+totals count; their ranges reach no trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import math
 import os
+import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Sequence
 from typing import Tuple, Union
@@ -40,8 +59,10 @@ from torch.utils.flop_counter import FlopCounterMode
 
 Device = Union[str, torch.device]
 
-# The Chrome trace that ``trace`` writes into its directory.
+# The Chrome trace that ``trace`` writes into its directory, and the
+# span totals and counters of the same window beside it.
 TRACE_FILE = "trace.json"
+SPANS_FILE = "spans.json"
 
 
 @contextlib.contextmanager
@@ -173,8 +194,11 @@ def parameter_count(model: torch.nn.Module) -> int:
 def trace(log_dir: str, device: Device) -> Iterator[torch.profiler.profile]:
     """Profiles the body with ``torch.profiler`` (CPU activity, and CUDA
     activity on a card) and writes a Chrome trace, ``log_dir/trace.json``,
-    for Perfetto or ``chrome://tracing``. The device is drained before the
-    trace ends. Yields the profiler."""
+    for Perfetto or ``chrome://tracing``, in which the program's spans are
+    ranges and each outermost span carries its unit's ``id`` in ``args``;
+    and the body's span totals and counters, ``log_dir/spans.json``
+    (``{"spans": span_totals(), "counters": counters()}``). The device is
+    drained before the trace ends. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
@@ -183,9 +207,232 @@ def trace(log_dir: str, device: Device) -> Iterator[torch.profiler.profile]:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield prof
-        _drain(device)
-    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+        _start_session()
+        try:
+            yield prof
+            _drain(device)
+        finally:
+            _end_session()
+    path = os.path.join(log_dir, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    _annotate(path)
+    with open(os.path.join(log_dir, SPANS_FILE), "w") as f:
+        json.dump({"spans": span_totals(), "counters": counters()}, f,
+                  indent=1)
+
+
+# -- spans and counters -------------------------------------------------------
+
+_profiling = torch.autograd._profiler_enabled
+_lock = threading.Lock()
+_local = threading.local()   # per thread: open spans, carried state
+_session = False             # set and cleared by the main thread only
+_carried = 0                 # threads inside ``in_thread(True)``
+_totals: Dict[str, List[int]] = {}     # name -> [calls, host ns, self ns]
+_counts: Dict[str, int] = {}
+_ids: Dict[Tuple[int, str], List[Any]] = {}  # (native tid, name) -> ids
+_sequence: Dict[str, int] = {}
+
+
+class _Off:
+    """What ``span`` and ``in_thread`` give while nothing records."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def _on_main() -> bool:
+    return threading.current_thread() is threading.main_thread()
+
+
+def _start_session() -> None:
+    global _session
+    with _lock:
+        for table in (_totals, _counts, _ids, _sequence):
+            table.clear()
+        _session = True
+
+
+def _end_session() -> None:
+    global _session
+    _session = False
+
+
+def enabled() -> bool:
+    """Whether spans and counters record on the calling thread. The main
+    thread opens a session when it finds the profiler on and none open,
+    and ends it when it finds the profiler off; no other thread does
+    either."""
+    if _profiling():
+        if not _session and _on_main():
+            _start_session()
+        return True
+    if _session and _on_main():
+        _end_session()
+        return False
+    return _carried > 0 and getattr(_local, "carried", 0) > 0
+
+
+class _Carried:
+    def __enter__(self) -> None:
+        global _carried
+        with _lock:
+            _carried += 1
+        _local.carried = getattr(_local, "carried", 0) + 1
+
+    def __exit__(self, *exc) -> bool:
+        global _carried
+        _local.carried -= 1
+        with _lock:
+            _carried -= 1
+        return False
+
+
+def in_thread(on: bool):
+    """A context manager for a worker thread's body that records there as
+    the thread that handed the work out does: ``on`` is that thread's
+    ``enabled()``, read when it handed the work out."""
+    return _Carried() if on else _OFF
+
+
+class _Span:
+    __slots__ = ("name", "id", "range", "start", "covered")
+
+    def __init__(self, name: str, id: Any):
+        self.name, self.id = name, id
+
+    def __enter__(self) -> "_Span":
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        if not stack:  # outermost on its thread: the unit's id
+            with _lock:
+                unit = self.id
+                if unit is None:
+                    unit = _sequence.get(self.name, 0)
+                    _sequence[self.name] = unit + 1
+                _ids.setdefault((threading.get_native_id(), self.name),
+                                []).append(unit)
+        stack.append(self)
+        self.covered = 0
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        took = time.perf_counter_ns() - self.start
+        self.range.__exit__(*exc)
+        stack = _local.stack
+        if stack and stack[-1] is self:
+            stack.pop()
+        else:
+            stack.remove(self)
+        if stack:
+            stack[-1].covered += took
+        with _lock:
+            totals = _totals.setdefault(self.name, [0, 0, 0])
+            totals[0] += 1
+            totals[1] += took
+            totals[2] += took - self.covered
+        return False
+
+
+def span(name: str, id: Any = None):
+    """A context manager around one layer's work. While this thread
+    records, it is a range ``name`` of the profiler's trace and adds to
+    ``span_totals()[name]``; an outermost span carries ``id`` (by default
+    its sequence number among the session's spans of that name) into the
+    range's ``args`` of the trace ``trace`` writes. Otherwise it does
+    nothing."""
+    if _profiling() or _carried or _session:
+        if enabled():
+            return _Span(name, id)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name`` while this thread records."""
+    if (_profiling() or _carried) and enabled():
+        with _lock:
+            _counts[name] = _counts.get(name, 0) + n
+
+
+def span_totals() -> Dict[str, Dict[str, float]]:
+    """Per span name, over the current or last profiler session: ``calls``,
+    ``host_s`` (the host seconds between entry and exit, summed over calls
+    and threads) and ``self_s`` (the part that no child span covers)."""
+    with _lock:
+        return {name: {"calls": calls, "host_s": host / 1e9,
+                       "self_s": own / 1e9}
+                for name, (calls, host, own) in _totals.items()}
+
+
+def counters() -> Dict[str, int]:
+    """Every counter of the current or last profiler session."""
+    with _lock:
+        return dict(_counts)
+
+
+def step_span(optimizer: torch.optim.Optimizer, name: str
+              ) -> torch.optim.Optimizer:
+    """Puts every ``optimizer.step()`` in the span ``name``, through the
+    optimizer's own step hooks, whoever calls it. Returns the optimizer."""
+    opened: List[Any] = []
+
+    def enter(opt, args, kwargs) -> None:
+        while opened:  # a step that raised left its span open
+            opened.pop().__exit__(None, None, None)
+        opened.append(span(name))
+        opened[-1].__enter__()
+
+    def leave(opt, args, kwargs) -> None:
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    optimizer.register_step_pre_hook(enter)
+    optimizer.register_step_post_hook(leave)
+    return optimizer
+
+
+def _annotate(path: str) -> None:
+    """Writes the unit id of every outermost span into its range's ``args``
+    in the Chrome trace at ``path``: the k-th range of a name that no other
+    ``dpft.`` range encloses on its thread takes the k-th id recorded there
+    (``record_function`` carries no arguments into the trace)."""
+    with _lock:
+        ids = {key: list(units) for key, units in _ids.items()}
+    if not ids:
+        return
+    with open(path) as f:
+        trace = json.load(f)
+    by_thread: Dict[Any, List[Dict[str, Any]]] = {}
+    for e in trace.get("traceEvents", []):
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and str(e.get("name", "")).startswith("dpft.")):
+            by_thread.setdefault(e.get("tid"), []).append(e)
+    for tid, events in by_thread.items():
+        end = -math.inf
+        seen: Dict[str, int] = {}
+        for e in sorted(events, key=lambda e: (e["ts"], -e.get("dur", 0))):
+            if e["ts"] < end:
+                continue  # enclosed by an earlier outermost range
+            end = e["ts"] + e.get("dur", 0)
+            units = ids.get((tid, e["name"]), [])
+            k = seen.get(e["name"], 0)
+            seen[e["name"]] = k + 1
+            if k < len(units):
+                e.setdefault("args", {})["id"] = units[k]
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 @dataclasses.dataclass
