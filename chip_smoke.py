@@ -20,7 +20,16 @@ not 0:
    (1e-4); outputs are finite and shaped; latency (CUDA events) and peak
    memory at B=1 and B=4 in f32 and bf16.
    The same forward's FLOPs (the evaluator's count) give the achieved
-   TFLOP/s of each case.
+   TFLOP/s of each case. A forward with a swapped MSDA core runs under
+   ``_Eager``, so that no stage replays a graph captured with the kernels.
+4b. CUDA graphs (``phase_graphs``): the eval forward's stages
+   (models/graphs.py) on a copy of the flagship and on
+   config/kradar_radar.json at B=1 and B=4 in f32: replays bit-equal to
+   the eager forward under ``inference_mode`` and ``no_grad``, held
+   outputs unchanged by the next call, exact ``msda_fwd`` launches per
+   replayed forward, in-place weight updates read, graphs dropped after
+   ``.to()`` and ``load_state_dict(assign=True)``, FLOPs unchanged; the
+   two models' replays in turns from the one memory pool.
 5. Serve path (the first main path): registry.save -> registry.load ->
    CentralizedEvaluator over two synthetic batches -> the K-Radar txt tree.
    The launch counts of both kernels are reset right before it and read
@@ -260,14 +269,15 @@ not 0:
    float32 ulps; each such gap is printed), ms per cube on the host with
    its CPU's name.
 22. Bench (last, ``phase_bench``): ``python -m dpft_tpu_torch.bench``
-   through its real entry, each run in a fresh process with BENCH_REPS 10
-   and BENCH_WARMUP 3: the default run (inference, B=4, bfloat16), train
-   at B=4 in float32 with BENCH_FLOPS=1 (3 steps after 2), prepare on the
-   default device (the four frame ids of tests/kradar_fixture.py at
-   K-Radar's shapes; without the NumPy baseline), inference at
-   B=1 in float32 as the cell ``1:f32`` of
+   through its real entry, each run in a fresh process with BENCH_REPS 1
+   and BENCH_WARMUP 1, all at once (the entry's timings are not read
+   here: the benchmark under h100_bench/ measures): the default run
+   (inference, B=4, bfloat16), train at B=4 in float32 with
+   BENCH_FLOPS=1, prepare on the default device (the four frame ids of
+   tests/kradar_fixture.py at K-Radar's shapes; without the NumPy
+   baseline), inference at B=1 in float32 as the cell ``1:f32`` of
    ``python -m dpft_tpu_torch.bench_scaling`` (which passes the bench's
-   stderr on); then BENCH_HOIST=1. Each run exits 0 with a last
+   stderr on), and BENCH_HOIST=1. Each run exits 0 with a last
    line of exactly the port's keys for its mode (``port_bench_keys``: the
    root bench.py's, read from its source with ``ast``, with the port's
    changes) naming this card and its power limit; the inference FLOPs
@@ -329,6 +339,7 @@ The last two lines are the kernel report and the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 """
 
+import contextlib
 import json
 import math
 import os
@@ -435,10 +446,7 @@ def _kernel_wrappers():
     from dpft_tpu_torch.ops import deform_attn as da
     from dpft_tpu_torch.ops import radar_reduce as rr
 
-    return {"msda_fwd": da.msda_fwd, "msda_bwd": da.msda_bwd,
-            "msda_mm_fwd": da.msda_mm_fwd, "msda_mm_bwd": da.msda_mm_bwd,
-            "radar_reduce_ra": rr.radar_reduce_ra,
-            "radar_reduce_ea": rr.radar_reduce_ea}
+    return {**da.LAUNCH_COUNTED, **rr.LAUNCH_COUNTED}
 
 
 def _reset_launches():
@@ -483,6 +491,32 @@ def _plain_core(value, shapes, loc, att, backend="gather"):
     plain = (da.ms_deform_attn_core_mm_plain if backend == "mm"
              else da.ms_deform_attn_core_plain)
     return plain(value, shapes, loc, att)
+
+
+class _Eager(torch.overrides.TorchFunctionMode):
+    """A mode that changes no operation. While it is active every stage of
+    the model runs eagerly (``models/graphs.py``): the reference for a
+    replay, and the way to run a swapped MSDA core, which no graph sees."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def _plain_core_eager():
+    """The layer's MSDA core swapped for the plain one in this process, and
+    every stage held eager (``_Eager``): a replay would run the kernels
+    that its capture saw, not the swapped core. Every eval forward on a
+    swapped core goes through here."""
+    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch.ops import deform_attn as da
+
+    msda_layer.ms_deform_attn_core = _plain_core
+    try:
+        with _Eager():
+            yield
+    finally:
+        msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
 
 
 def phase_device():
@@ -641,19 +675,13 @@ def _to_cuda(batch):
 
 
 def phase_flagship(config, model):
-    import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
-    from dpft_tpu_torch.ops import deform_attn as da
     from dpft_tpu_torch.utils.example import example_batch
 
     batch = _to_cuda(example_batch(config, B=1, cam_hw=(512, 910)))
     with torch.inference_mode():
         out = model(batch)
-        # The same model with the plain core, swapped in this process only.
-        msda_layer.ms_deform_attn_core = _plain_core
-        try:
+        with _plain_core_eager():
             ref = model(batch)
-        finally:
-            msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
     expect = {"class": 2, "center": 3, "size": 3, "angle": 2}
     for key, width in expect.items():
         got, want = out[key], ref[key]
@@ -668,6 +696,167 @@ def phase_flagship(config, model):
         print(f"[flagship] B=1 f32 {key} {tuple(got.shape)} finite, kernel "
               f"vs plain core max_abs_err={err:.3e} (tol 1e-4) ok")
     _time_forwards(config, model, "flagship")
+
+
+RADAR_FLOPS = 6_091_105_532  # one B=1 forward of config/kradar_radar.json
+
+
+def _graphed(model):
+    """The stages of ``model`` that hold a captured graph."""
+    from dpft_tpu_torch.models import graphs
+
+    return sum(any(isinstance(g, graphs._Graph)
+                   for g in m.__dict__["_graphs"].graphs.values())
+               for m in model.modules() if "_graphs" in m.__dict__)
+
+
+def _held_equal(label, got, want):
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            err = (got[key] - want[key]).abs().max().item()
+            raise AssertionError(f"[graphs] {label}: {key} differs from the "
+                                 f"eager forward by up to {err:.3e}")
+
+
+def phase_graphs(config, model):
+    """The eval forward's stages as CUDA graphs (``models/graphs.py``), on
+    a copy of the flagship and on config/kradar_radar.json, at B=1 and B=4
+    in float32. Held: every stage replays from the third call of a key on,
+    bit-equal to the eager forward (held eager by ``_Eager``) under
+    ``inference_mode`` and ``no_grad``, with 12 (8) ``msda_fwd`` launches
+    counted per forward; outputs held from one call are unchanged by the
+    next; after an in-place update of every weight a replay gives the
+    eager forward of the new weights; after ``.to()`` (cpu and back) and
+    after ``load_state_dict(assign=True)``, with the old tensors kept and
+    filled with NaN, the graphs are dropped, the outputs are the eager
+    forward's and the stages capture again; FLOPs by the evaluator and by
+    hooks are the forward's (155,427,456,252 / 6,091,105,532 at B=1).
+    Printed: ms per forward on the host clock, replayed and eager (the
+    latter slowed by ``_Eager``'s Python call per operation)."""
+    import copy
+
+    from dpft_tpu_torch.evaluation.evaluator import forward_flops
+    from dpft_tpu_torch.models import registry
+    from dpft_tpu_torch.utils.example import example_batch
+
+    with open(os.path.join(ROOT, "config", "kradar_radar.json")) as f:
+        radar_config = json.load(f)
+    nets = (("kradar", config, copy.deepcopy(model).eval(), 10,
+             155_427_456_252),
+            ("kradar_radar", radar_config,
+             registry.build(radar_config["model"]["name"], radar_config,
+                            device="cuda", seed=0).eval(), 7, RADAR_FLOPS))
+
+    def clone(out):
+        return {k: v.clone() for k, v in out.items()}
+
+    def eager(net, batch):
+        with _Eager():
+            return net(batch)
+
+    for name, cfg, net, stages, flops in nets:
+        views = len(cfg["model"]["inputs"])
+        for B in (1, 4):
+            a, b = (_to_cuda(example_batch(cfg, B=B, cam_hw=(512, 910),
+                                           seed=seed)) for seed in (0, 1))
+            label = f"{name} B={B}"
+            with torch.inference_mode():
+                for _ in range(3):
+                    net(a)
+                if _graphed(net) != stages:
+                    raise AssertionError(f"[graphs] {label}: "
+                                         f"{_graphed(net)} of {stages} "
+                                         "stages captured")
+                _reset_launches()
+                held = net(a)
+                launches = _read_launches()["msda_fwd"]
+                kept = clone(held)
+                other = net(b)
+                _held_equal(f"{label} replay", held, eager(net, a))
+                _held_equal(f"{label} replay of other inputs", other,
+                            eager(net, b))
+                _held_equal(f"{label} held outputs", held, kept)
+            want = cfg["model"]["fuser"]["i_iter"] * views
+            if launches != want:
+                raise AssertionError(f"[graphs] {label}: {launches} msda_fwd "
+                                     f"launches counted, expected {want}")
+            with torch.no_grad():
+                for _ in range(3):
+                    net(a)
+                _held_equal(f"{label} no_grad replay", net(a), eager(net, a))
+            with torch.inference_mode():
+                times = {}
+                for kind, run in (("replayed", lambda: net(a)),
+                                  ("eager", lambda: eager(net, a))):
+                    run()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        run()
+                    torch.cuda.synchronize()
+                    times[kind] = (time.perf_counter() - t0) * 100
+            print(f"[graphs] {label}: {stages} stages replay, bit-equal to "
+                  f"eager under inference_mode and no_grad, held outputs "
+                  f"unchanged, {launches} msda_fwd launches per forward; "
+                  f"host clock {times['replayed']:.2f} ms per forward "
+                  f"replayed, {times['eager']:.2f} eager (under _Eager)")
+
+        views = len(cfg["model"]["inputs"])
+        a = _to_cuda(example_batch(cfg, B=1, cam_hw=(512, 910)))
+        with torch.no_grad():
+            for p in net.parameters():
+                p.mul_(1.001)
+        with torch.inference_mode():
+            _held_equal(f"{name} after an in-place update", net(a),
+                        eager(net, a))
+        for how in ("to", "assign"):
+            old = [t.detach() for t in (*net.parameters(), *net.buffers())]
+            if how == "to":
+                net.to("cpu").to("cuda")
+            else:
+                net.load_state_dict({k: v * 1.001 if v.is_floating_point()
+                                     else v.clone() for k, v in
+                                     net.state_dict().items()}, assign=True)
+            with torch.no_grad():
+                for t in old:
+                    if t.is_floating_point():
+                        t.fill_(float("nan"))
+            with torch.inference_mode():
+                got = net(a)
+                dropped = _graphed(net)
+                net(a)
+                replayed = net(a)
+                want = eager(net, a)
+            _held_equal(f"{name} after {how}", got, want)
+            _held_equal(f"{name} replayed after {how}", replayed, want)
+            # The embeddings hold no parameter or buffer: theirs stay.
+            if dropped != views or _graphed(net) != stages:
+                raise AssertionError(f"[graphs] {name} after {how}: "
+                                     f"{dropped} stages kept their graphs, "
+                                     f"{_graphed(net)} captured again")
+            del old
+        counted = (forward_flops(net, a), reckon_flops(net, a))
+        if counted != (flops, flops):
+            raise AssertionError(f"[graphs] {name}: FLOPs {counted}, "
+                                 f"expected {flops}")
+        print(f"[graphs] {name}: replay after an in-place update = eager; "
+              f"after .to() and load_state_dict(assign=True) the graphs are "
+              f"dropped (the old tensors NaN), then captured again; FLOPs "
+              f"{flops:,} by the evaluator and by hooks")
+
+    # Every graph is captured into one memory pool: replays of the two
+    # models in turns, held, each give its model's eager forward.
+    runs = [(name, net, _to_cuda(example_batch(cfg, B=1, cam_hw=(512, 910))))
+            for name, cfg, net, _, _ in nets]
+    with torch.inference_mode():
+        held = [(f"{name} replay {turn} in turns", net, x, net(x))
+                for turn in range(2) for name, net, x in runs]
+        for label, net, x, got in held:
+            _held_equal(label, got, eager(net, x))
+    print("[graphs] kradar and kradar_radar replayed in turns from one "
+          "memory pool: each held output = its eager forward")
+    del nets
+    torch.cuda.empty_cache()
 
 
 def _time_forwards(config, model, label):
@@ -1139,8 +1328,7 @@ import dpft_tpu_torch.ops.deform_attn as da
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 tmp, names, reps = sys.argv[1], sys.argv[2].split(","), int(sys.argv[3])
-wrappers = {"msda_fwd": da.msda_fwd, "msda_bwd": da.msda_bwd,
-            "msda_mm_fwd": da.msda_mm_fwd, "msda_mm_bwd": da.msda_mm_bwd}
+wrappers = da.LAUNCH_COUNTED
 batches = torch.load(tmp + "/batches.pt")
 for w in wrappers.values():
     w.launches = 0
@@ -2757,11 +2945,8 @@ def _hold_model(tag, label, fconfig, desc):
         _reset_launches()
         out = model(batches[1])
         fwd_launches = _read_launches()
-        msda_layer.ms_deform_attn_core = _plain_core
-        try:
+        with _plain_core_eager():
             ref = model(batches[1])
-        finally:
-            msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
     expected = _expected_launches(fconfig, view_shapes, 1, 0)
     if fwd_launches != expected or fwd_launches["msda_fwd"] != calls:
         raise AssertionError(f"{desc} forward launched "
@@ -4938,13 +5123,11 @@ BENCH_DROPPED = {"readback_rtt_ms", "hbm_static_gb", "hbm_static",
 BENCH_ADDED = {"device", "power_limit_w", "launches_per_call",
                "device_busy_share", "device_ms_per_call"}
 # phase_bench's runs of ``python -m dpft_tpu_torch.bench`` (label, env), and
-# the cell of ``bench_scaling`` that is its inference run at B=1 in float32
-# (one process fewer than a run of its own: the phase has 150 s).
+# the cell of ``bench_scaling`` that is its inference run at B=1 in float32.
 BENCH_RUNS = (
     ("inference B=4 bf16 (the default)", {}),
     ("train B=4 f32", {"BENCH_MODE": "train", "BENCH_DTYPE": "float32",
-                       "BENCH_FLOPS": "1", "BENCH_REPS": "3",
-                       "BENCH_WARMUP": "2"}),
+                       "BENCH_FLOPS": "1"}),
     ("prepare", {"BENCH_MODE": "prepare", "BENCH_PREPARE_BASELINE": "0"}))
 BENCH_SCALING_CELL = ("inference", "1:f32")
 
@@ -5054,9 +5237,9 @@ def _check_bench_run(label, mode, run, card, limit_w, flops):
 
 def phase_bench(flops):
     """``python -m dpft_tpu_torch.bench`` through its real entry, in fresh
-    processes with few repetitions (``BENCH_RUNS``, and
-    ``BENCH_SCALING_CELL`` through ``python -m
-    dpft_tpu_torch.bench_scaling``), then ``BENCH_HOIST=1``. Each run must
+    processes that run at once with one repetition after one warm-up
+    (``BENCH_RUNS``, ``BENCH_SCALING_CELL`` through ``python -m
+    dpft_tpu_torch.bench_scaling``, and ``BENCH_HOIST=1``). Each run must
     exit 0 with a last line of exactly the port's keys for its mode
     (``port_bench_keys``) naming this card and its power limit; the
     inference FLOPs must be ``flops`` (the serve path's count per B=1
@@ -5065,34 +5248,43 @@ def phase_bench(flops):
     at the end of every run; the kernels launched (the ``bench:`` line of
     stderr) must be those of the mode. ``BENCH_HOIST=1`` must exit 1 with
     an error line. Returns every run's last line by label."""
+    from concurrent.futures import ThreadPoolExecutor
+
     card = torch.cuda.get_device_name(0)
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
     limit_w = float(smi.rsplit(",", 1)[1].split()[0])
-    base = {"BENCH_REPS": "10", "BENCH_WARMUP": "3"}
+    base = {"BENCH_REPS": "1", "BENCH_WARMUP": "1"}
     module = ("-m", "dpft_tpu_torch.bench")
-    results = {}
-    for label, env in BENCH_RUNS:
-        env = {**base, **env}
-        mode = env.get("BENCH_MODE", "inference")
-        results[label] = _check_bench_run(
-            label, mode, _bench_process(module, env), card, limit_w, flops)
-
     mode, cell = BENCH_SCALING_CELL
-    label = f"bench_scaling {mode} {cell}"
-    with tempfile.TemporaryDirectory() as tmp:
+    scaling = f"bench_scaling {mode} {cell}"
+    with tempfile.TemporaryDirectory() as tmp, \
+            ThreadPoolExecutor(len(BENCH_RUNS) + 2) as pool:
         out = os.path.join(tmp, "scaling.jsonl")
-        rc, _, diag, seconds = _bench_process(
+        runs = {label: pool.submit(_bench_process, module, {**base, **env})
+                for label, env in BENCH_RUNS}
+        runs[scaling] = pool.submit(
+            _bench_process,
             ("-m", "dpft_tpu_torch.bench_scaling", out, mode, cell), base)
+        hoist = pool.submit(_bench_process, module, {"BENCH_HOIST": "1"})
+        runs = {label: run.result() for label, run in runs.items()}
         with open(out) as f:
             rows = [json.loads(line) for line in f]
-    if len(rows) != 1 or "error" in rows[0]:
-        raise AssertionError(f"{label}: exit {rc}, {rows}")
-    row = {k: v for k, v in rows[0].items() if k not in ("mode", "wall_sec")}
-    results[label] = _check_bench_run(label, mode, (rc, row, diag, seconds),
-                                      card, limit_w, flops)
 
-    rc, result, _, seconds = _bench_process(module, {"BENCH_HOIST": "1"})
+    results = {}
+    for label, env in BENCH_RUNS:
+        results[label] = _check_bench_run(
+            label, env.get("BENCH_MODE", "inference"), runs[label], card,
+            limit_w, flops)
+    rc, _, diag, seconds = runs[scaling]
+    if len(rows) != 1 or "error" in rows[0]:
+        raise AssertionError(f"{scaling}: exit {rc}, {rows}")
+    row = {k: v for k, v in rows[0].items() if k not in ("mode", "wall_sec")}
+    results[scaling] = _check_bench_run(scaling, mode,
+                                        (rc, row, diag, seconds), card,
+                                        limit_w, flops)
+
+    rc, result, _, seconds = hoist.result()
     if rc != 1 or "BENCH_HOIST" not in (result or {}).get("error", ""):
         raise AssertionError(f"BENCH_HOIST=1: exit {rc}, {result}")
     print(f"[bench] BENCH_HOIST=1: exit 1 in {seconds:.1f} s, {result}")
@@ -5147,6 +5339,7 @@ def main():
     fwd_report = _timed("kernel_vs_plain", phase_kernel_vs_plain,
                         view_shapes)
     _timed("flagship", phase_flagship, config, model)
+    _timed("graphs", phase_graphs, config, model)
     paths = {}
     paths["serve"], flops = _timed("serve", phase_serve, config, model,
                                    view_shapes)

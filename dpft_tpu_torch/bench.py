@@ -435,9 +435,8 @@ def _kernel_launches() -> Dict[str, int]:
     from dpft_tpu_torch.ops import deform_attn as da
     from dpft_tpu_torch.ops import radar_reduce as rr
 
-    wrappers = (da.msda_fwd, da.msda_bwd, da.msda_mm_fwd, da.msda_mm_bwd,
-                rr.radar_reduce_ra, rr.radar_reduce_ea)
-    return {w.__name__: w.launches for w in wrappers}
+    wrappers = {**da.LAUNCH_COUNTED, **rr.LAUNCH_COUNTED}
+    return {name: w.launches for name, w in wrappers.items()}
 
 
 def _fail(mode: str, error: str) -> None:

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dpft_tpu_torch.models.graphs import stage
 from dpft_tpu_torch.models.layers.common import Permute
 
 _VARIANTS = {
@@ -101,6 +102,7 @@ class ConvNeXtBackbone(nn.Module):
                                  if in_channels != 3 else None)
         self.body = convnext_features(variant, multi_scale)
 
+    @stage
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.adjustment_layer is not None:
             x = self.adjustment_layer(x)

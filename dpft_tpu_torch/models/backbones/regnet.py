@@ -20,6 +20,8 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 
+from dpft_tpu_torch.models.graphs import stage
+
 _VARIANTS = {
     # name: (depths, widths, group_width, use_se)
     "regnet_x_400mf": ((1, 2, 7, 12), (32, 64, 160, 400), 16, False),
@@ -101,6 +103,7 @@ class RegNetBackbone(nn.Module):
         self.stem = _conv_bn(3, STEM_WIDTH, 3, 2)
         self.body = regnet_trunk(variant, multi_scale)
 
+    @stage
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.adjustment_layer is not None:
             x = self.adjustment_layer(x)

@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dpft_tpu_torch.models.graphs import stage
+
 _STAGES: Dict[str, tuple] = {
     "resnet18": ("basic", (2, 2, 2, 2)),
     "resnet34": ("basic", (3, 4, 6, 3)),
@@ -113,6 +115,7 @@ class ResNetBackbone(nn.Module):
                                  if in_channels != 3 else None)
         self.body = ResNetBody(variant, multi_scale)
 
+    @stage
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.adjustment_layer is not None:
             x = self.adjustment_layer(x)

@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dpft_tpu_torch.models.backbones.convnext import stage_outputs
+from dpft_tpu_torch.models.graphs import stage
 from dpft_tpu_torch.models.layers.common import Permute
 
 _VARIANTS = {
@@ -190,6 +191,7 @@ class SwinBackbone(nn.Module):
                                  if in_channels != 3 else None)
         self.body = swin_features(variant, multi_scale)
 
+    @stage
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.adjustment_layer is not None:
             x = self.adjustment_layer(x)

@@ -22,6 +22,24 @@ state_dict keys. The recompute leaves BatchNorm's running statistics and
 counters as the forward left them (JAX's remat commits ``batch_stats``
 once).
 
+CUDA graphs (``models/graphs.py``). Each view's backbone, neck and
+embedding and the fuser (its four fusion iterations, their MSDA calls, the
+reductions and the heads) are stages: called as modules, as here, each
+replays one CUDA graph per input layout instead of launching its
+operations one by one. A stage replays when its inputs are on a CUDA
+device, the model is in ``eval()``, grad is off (``inference_mode`` or
+``no_grad``), no ``TorchFunctionMode`` / ``TorchDispatchMode`` is active
+(``FlopCounterMode``) and nothing exports, compiles or traces; from the
+third call of a key on (the first runs eagerly, the second captures). In
+every other case (the CPU, training, ``torch.export``, the FLOP count,
+remat's checkpointed backbones) it runs eagerly as before. Replays read the
+weights in place; moving or rebinding a parameter or buffer drops the
+graphs. The querent launches nothing after its first call (its grid or
+its parameter, broadcast to the batch) and is not a stage. The module tree
+and the state_dict keys are those without graphs, and hooks on the stage
+modules fire around each replay as around an eager call. Spans inside a
+stage (the fuser's) record only when it runs eagerly.
+
 Spans (``utils/profiling.py``): ``dpft.forward`` holds ``dpft.frontend``
 (``features``; per view ``v`` in input order
 ``dpft.frontend.view<v>.backbone`` / ``.neck`` / ``.embedding``) and

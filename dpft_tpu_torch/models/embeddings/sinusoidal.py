@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dpft_tpu_torch.models.graphs import stage
+
 
 def pos_table(H: int, W: int, num_feats: int, temperature: float,
               normalize: bool, scale: float, eps: float,
@@ -62,6 +64,7 @@ class MultiLevelSinusoidalEmbedding(nn.Module):
                 device)
         return self._tables[key]
 
+    @stage
     def forward(self, levels: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         out = {}

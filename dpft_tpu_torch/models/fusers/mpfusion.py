@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dpft_tpu_torch.models.graphs import stage
 from dpft_tpu_torch.models.layers.attention import MultiheadAttention
 from dpft_tpu_torch.models.layers.common import get_activation
 from dpft_tpu_torch.models.layers.ms_deform_attn import MSDeformAttn
@@ -265,6 +266,7 @@ class IMPFusion(nn.Module):
         with torch.no_grad():
             self.query.uniform_(0.0, 1.0, generator=gen)
 
+    @stage
     def forward(self, views: List[ViewFeatures], shape: List[torch.Tensor],
                 projection: List[Tuple[torch.Tensor, torch.Tensor]],
                 out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

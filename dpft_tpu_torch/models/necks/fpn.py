@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dpft_tpu_torch.models.graphs import stage
 from dpft_tpu_torch.models.layers.common import uniform_
 
 
@@ -41,6 +42,7 @@ class FPN(nn.Module):
                 with torch.no_grad():
                     conv.bias.zero_()
 
+    @stage
     def forward(self, levels: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
         keys = list(levels)

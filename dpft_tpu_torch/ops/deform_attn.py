@@ -300,11 +300,13 @@ def ms_deform_attn_core_mm_plain(value: torch.Tensor, spatial_shapes: Shapes,
     return out.permute(0, 2, 1, 3).reshape(B, N, H * D)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _level_sizes(spatial_shapes: Tuple[Tuple[int, int], ...],
                  device: torch.device) -> torch.Tensor:
     """(L, 2) float32 (w, h) of every level, on ``device``. Made outside
-    inference mode, so that one table serves inference and autograd."""
+    inference mode, so that one table serves inference and autograd. Kept
+    for the life of the process (a few bytes per key): a CUDA graph that
+    reads a table (``models/graphs.py``) holds no reference to it."""
     count("dpft.host_syncs")  # a pageable copy to the device, once per key
     with torch.inference_mode(False):
         return torch.tensor([(w, h) for h, w in spatial_shapes],
@@ -1236,3 +1238,7 @@ msda_fwd.launches = 0
 msda_bwd.launches = 0
 msda_mm_fwd.launches = 0
 msda_mm_bwd.launches = 0
+# The wrappers that count their launches, by name; a replay of a CUDA graph
+# advances them by the launches its capture made (models/graphs.py).
+LAUNCH_COUNTED = {w.__name__: w for w in (msda_fwd, msda_bwd, msda_mm_fwd,
+                                          msda_mm_bwd)}

@@ -25,7 +25,9 @@ Not ported:
 
 Spans and counters (no counterpart in the JAX package). The program opens
 ``span(name)`` at the boundaries of its layers and calls ``count(name)``
-where the host waits for the card. Both record only while a
+where the host waits for the card (``dpft.host_syncs``) and at each call of
+a graphed stage (``GRAPH_REPLAYS`` / ``_CAPTURES`` / ``_EAGER`` below).
+Both record only while a
 ``torch.profiler`` records on the calling thread (``trace`` below, or any
 other profiler window); otherwise a span is one check and a shared
 do-nothing context manager, with no range, clock read or allocation. A
@@ -357,6 +359,15 @@ def span(name: str, id: Any = None):
         if enabled():
             return _Span(name, id)
     return _OFF
+
+
+# Counters of the stages' CUDA graphs (``models/graphs.py``), per stage
+# call of an eval forward on the card (eval mode, grad off, no mode or
+# tracing): one that replayed its graph, one that captured it, and one
+# that ran eagerly (a capturing call included).
+GRAPH_REPLAYS = "dpft.graph.replays"
+GRAPH_CAPTURES = "dpft.graph.captures"
+GRAPH_EAGER = "dpft.graph.eager"
 
 
 def count(name: str, n: int = 1) -> None:
