@@ -2,10 +2,15 @@
 ``FlopCounterMode`` over the program at a configuration's own sizes.
 
     python3 h100_bench/flops_check.py --config kradar --batch 1
+    python3 h100_bench/flops_check.py --file h100_bench/tests/kradar_swinb.json \
+        --batch 4 --step
 
-Prints one JSON line; exits 1 where the two differ. Needs a CUDA card at
-the published sizes; the test suite runs the same comparison at a tiny
-size on the CPU.
+``--config`` names a configuration of ``BENCHMARK.json``; ``--file`` takes
+a configuration file that is in no cell yet. ``--step`` counts a train
+step (the forward in train mode and the backward of a loss of the
+outputs) instead of the eval forward. Prints one JSON line; exits 1 where
+the two differ. Needs a CUDA card at the published sizes; the test suite
+runs the same comparisons at a tiny size on the CPU.
 """
 
 import argparse
@@ -18,7 +23,7 @@ sys.path.insert(0, str(HERE.parent))
 sys.path.insert(0, str(HERE))
 
 
-def forward_count(config, shapes, batch, device) -> int:
+def counted(config, shapes, batch, device, step: bool) -> int:
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -26,12 +31,18 @@ def forward_count(config, shapes, batch, device) -> int:
     from harness.inputs import make_requests
 
     model, _ = program.build_model(config, device, seed=0)
-    # The counter's module tracker hooks inputs that require grad; with no
-    # parameter requiring it the forward is counted alone.
-    model.requires_grad_(False)
     req = make_requests(config, shapes, 1, batch, seed=0)[0]
     tensors = {k: torch.as_tensor(v).to(device) for k, v in req.items()}
     counter = FlopCounterMode(display=False)
+    if step:
+        model.train()
+        with counter:
+            out = model(tensors)
+            sum(v.sum() for v in out.values()).backward()
+        return counter.get_total_flops()
+    # The counter's module tracker hooks inputs that require grad; with no
+    # parameter requiring it the forward is counted alone.
+    model.requires_grad_(False)
     with counter:
         model(tensors)
     return counter.get_total_flops()
@@ -39,25 +50,35 @@ def forward_count(config, shapes, batch, device) -> int:
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--config", required=True)
+    which = parser.add_mutually_exclusive_group(required=True)
+    which.add_argument("--config")
+    which.add_argument("--file")
     parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--step", action="store_true")
     args = parser.parse_args()
 
     import torch
 
     from harness import flops
 
-    bench = json.loads((HERE.parent / "BENCHMARK.json").read_text())
-    entry = next(c for c in bench["configs"] if c["name"] == args.config)
-    config = json.loads((HERE.parent / entry["file"]).read_text())
+    if args.file:
+        path = Path(args.file)
+    else:
+        bench = json.loads((HERE.parent / "BENCHMARK.json").read_text())
+        entry = next(c for c in bench["configs"]
+                     if c["name"] == args.config)
+        path = HERE.parent / entry["file"]
+    config = json.loads(path.read_text())
     shapes = config["bench"]["input_shapes"]
     device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    counted = forward_count(config, shapes, args.batch, device)
-    ours = flops.forward_flops(config, shapes, args.batch)
-    print(json.dumps({"config": args.config, "batch": args.batch,
-                      "flop_counter": counted, "harness": ours,
-                      "equal": counted == ours}))
-    return 0 if counted == ours else 1
+    theirs = counted(config, shapes, args.batch, device, args.step)
+    count = flops.step_flops if args.step else flops.forward_flops
+    ours = count(config, shapes, args.batch)
+    print(json.dumps({"config": args.config or args.file,
+                      "batch": args.batch, "step": args.step,
+                      "flop_counter": theirs, "harness": ours,
+                      "equal": theirs == ours}))
+    return 0 if theirs == ours else 1
 
 
 if __name__ == "__main__":

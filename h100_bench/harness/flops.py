@@ -10,6 +10,13 @@ interpolation, the loss, the matching and the optimizer are not counted.
 A train step adds the backward: the gradient of every weight, and of
 every input that carries one (the raw sensor data does not).
 
+Backbone families, by the program's substring rule: ResNet (torchvision
+v1.5) and Swin v1 (torchvision's ``swin_t`` / ``swin_s`` / ``swin_b``, as
+``shifted_window_attention`` computes it: the 4x4 patch convolution, qkv
+and the output projection over the tokens of the padded 7x7 windows, both
+attention products per window, the MLP over the unpadded tokens and the
+merges' reductions). ConvNeXt and RegNet raise ``ValueError``.
+
 A later change that fuses, replaces or skips an operator of the program
 leaves these numbers as they are. The test suite holds them against
 PyTorch's ``FlopCounterMode`` over the program at a tiny size on the CPU,
@@ -21,6 +28,9 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Sequence, Tuple
+
+from reference import dpft_ref
+from reference.swin_ref import VARIANTS as _SWIN, WINDOW
 
 _BLOCKS = {"resnet18": ("basic", (2, 2, 2, 2)),
            "resnet34": ("basic", (3, 4, 6, 3)),
@@ -91,6 +101,77 @@ def resnet_levels(c: Count, B: int, variant: str, cin: int, h: int, w: int,
     return levels
 
 
+def _padded(n: int) -> int:
+    return -(-n // WINDOW) * WINDOW
+
+
+@dataclasses.dataclass
+class SwinStage:
+    """One stage of a Swin trunk: its width and heads, its blocks, and
+    the (h, w) of its tokens."""
+
+    dim: int
+    heads: int
+    blocks: int
+    h: int
+    w: int
+
+    def shifted(self, block: int) -> bool:
+        """Whether block ``block`` rolls its map: every second one, unless
+        one window covers the padded map along both axes."""
+        return block % 2 == 1 and (_padded(self.h) > WINDOW
+                                   or _padded(self.w) > WINDOW)
+
+
+def swin_stages(variant: str, h: int, w: int,
+                multi_scale: int) -> List[SwinStage]:
+    """The stages 1..multi_scale of a Swin trunk over an (h, w) input: the
+    patch convolution floors, each merge takes the ceiling."""
+    dim, depths, heads = _SWIN[variant]
+    h, w = _out(h, 4, 4, 0), _out(w, 4, 4, 0)
+    stages = []
+    for s in range(min(multi_scale, 4)):
+        if s > 0:
+            h, w = -(-h // 2), -(-w // 2)
+        stages.append(SwinStage(dim * 2 ** s, heads[s], depths[s], h, w))
+    return stages
+
+
+def swin_levels(c: Count, B: int, variant: str, cin: int, h: int, w: int,
+                multi_scale: int) -> List[Tuple[int, int, int]]:
+    """Counts a Swin v1 trunk; returns (channels, h, w) of each stage."""
+    grad = False  # the raw input carries no gradient
+    if cin != 3:
+        _conv(c, B, cin, 3, 1, h, w, input_grad=False)
+        grad = True
+    stages = swin_stages(variant, h, w, multi_scale)
+    _conv(c, B, 3, stages[0].dim, 4, h, w, 4, input_grad=grad)
+    levels = []
+    for i, st in enumerate(stages):
+        C = st.dim
+        if i > 0:
+            c.add(2 * B * st.h * st.w * 2 * C * C)     # merge: 4 C/2 -> C
+        padded = B * _padded(st.h) * _padded(st.w)   # tokens in windows
+        tokens = B * st.h * st.w
+        for _ in range(st.blocks):
+            c.add(2 * padded * C * 3 * C)             # qkv
+            c.add(2 * 2 * padded * WINDOW ** 2 * C)   # q k^T, probs v
+            c.add(2 * padded * C * C)                 # proj
+            c.add(2 * 2 * tokens * C * 4 * C)         # mlp.0, mlp.3
+        levels.append((C, st.h, st.w))
+    return levels
+
+
+def family(name: str) -> str:
+    """The backbone family of ``name`` (the reference's substring rule);
+    raises ``ValueError`` for one this count does not cover."""
+    kind = dpft_ref.family(name)
+    if kind not in ("resnet", "swin"):
+        raise ValueError(f"the FLOP count has no {kind} backbone "
+                         f"({name!r}): it covers ResNet and Swin")
+    return kind
+
+
 def view_levels(c: Count, B: int, config: dict, view: str,
                 hwc: Sequence[int]) -> List[Tuple[int, int]]:
     """Counts one view's backbone and FPN; returns the (h, w) of every
@@ -98,8 +179,9 @@ def view_levels(c: Count, B: int, config: dict, view: str,
     model = config["model"]
     bb = model["backbones"][view]
     h, w, cin = hwc
-    levels = resnet_levels(c, B, bb["name"].lower(), cin, h, w,
-                           bb.get("multi_scale", 1))
+    trunk = swin_levels if family(bb["name"]) == "swin" else resnet_levels
+    levels = trunk(c, B, bb["name"].lower(), cin, h, w,
+                   bb.get("multi_scale", 1))
     raw_grad = []
     if model.get("skiplinks", {}).get(view, False):
         levels = [(cin, h, w)] + levels
@@ -218,6 +300,35 @@ def msda_bound_s(config: dict, input_shapes, B: int,
                                 backward)
         total += max(ops / PEAK_F32_FLOPS, moved / PEAK_HBM_BYTES_PER_S)
     return total * f["i_iter"]
+
+
+def window_attention_bound_s(config: dict, input_shapes, B: int) -> float:
+    """The least time the card could take for every windowed attention
+    of the Swin trunks of one forward (0 without one): per block the
+    larger of its bytes over HBM bandwidth and its two products (q k^T,
+    probs v) over the float32 peak. The bytes: q, k and v read once and
+    the output written once, float32, over the padded windows' tokens,
+    the block's bias table, and in a shifted block its mask (one per
+    window, shared over the batch)."""
+    total = 0.0
+    for view in config["model"]["inputs"]:
+        bb = config["model"]["backbones"][view]
+        if family(bb["name"]) != "swin":
+            continue
+        h, w, _ = input_shapes[view]
+        for st in swin_stages(bb["name"].lower(), h, w,
+                              bb.get("multi_scale", 1)):
+            windows = _padded(st.h) * _padded(st.w) // WINDOW ** 2
+            tokens = B * windows * WINDOW ** 2
+            ops = 2 * 2 * tokens * WINDOW ** 2 * st.dim
+            table = (2 * WINDOW - 1) ** 2 * st.heads * 4
+            mask = windows * WINDOW ** 4 * 4
+            for b in range(st.blocks):
+                moved = (4 * tokens * st.dim * 4 + table
+                         + (mask if st.shifted(b) else 0))
+                total += max(ops / PEAK_F32_FLOPS,
+                             moved / PEAK_HBM_BYTES_PER_S)
+    return total
 
 
 def radar_bound_s(cube: Sequence[int], range_rows: Tuple[int, int]) -> float:

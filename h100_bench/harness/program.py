@@ -8,6 +8,7 @@ is imported, so the harness's own code and tests load without it.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, Tuple
 
@@ -46,6 +47,10 @@ def build_model(config: dict, device: torch.device, seed: int
 
     with torch.device(device):
         model = dpft.from_config(config)
+    # A buffer made from host data (Swin's relative-position index, from
+    # numpy) stays on the host under the device context; the program's own
+    # ``registry.build`` moves its model, and so does this.
+    model.to(device)
     state = weights.draw(model.state_dict(), seed, device)
     model.load_state_dict(state)
     template = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
@@ -54,7 +59,11 @@ def build_model(config: dict, device: torch.device, seed: int
 
 
 def release(device: torch.device) -> None:
-    """Gives the cached device memory back after the program is dropped."""
+    """Gives the cached device memory back after the program is dropped.
+    The model lies in reference cycles, so it is freed only by the
+    collector: run here, so that the reference runs in the memory that
+    the program held."""
+    gc.collect()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()

@@ -10,7 +10,19 @@ mapped entry by entry onto its range:
 - one-dimensional ``*.weight`` (BatchNorm, LayerNorm): U(0.75, 1.25);
 - one-dimensional biases: U(-0.1, 0.1);
 - BatchNorm's ``running_mean``: U(-0.1, 0.1), ``running_var``:
-  U(0.5, 1.5); ``num_batches_tracked``: 0.
+  U(0.5, 1.5).
+
+The rules go by an entry's shape and name, so they cover every backbone
+family the program builds (ResNet, Swin, ConvNeXt, RegNet): Swin's
+relative-position bias tables are two-dimensional, its LayerNorms
+one-dimensional. Integer entries are no weights and are not drawn. Where
+the template holds values (the program's own ``state_dict``), an integer
+entry keeps them: Swin's ``relative_position_index``, which the model
+computed from its window size, must survive, or every pair of positions
+would read row 0 of the bias table. Where the template is on the meta
+device (the shapes that the reference's copy is drawn from), an integer
+entry is zero; the reference reads none. ``num_batches_tracked`` is 0
+either way.
 
 Every weight, the deformable attention's offsets and attention logits
 included, is random, so the outputs depend on every layer. The program
@@ -51,6 +63,10 @@ def draw(template: Mapping[str, torch.Tensor], seed: int,
             value = part * 0.5 + 0.75
         out[key] = value.to(t.dtype)
     for key, t in template.items():
-        if not t.is_floating_point():
+        if t.is_floating_point():
+            continue
+        if t.is_meta or key.endswith("num_batches_tracked"):
             out[key] = torch.zeros_like(t, device=device)
+        else:
+            out[key] = t.detach().to(device, copy=True)
     return out

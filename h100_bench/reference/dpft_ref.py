@@ -9,8 +9,12 @@ multi-scale deformable attention core is Deformable DETR's own PyTorch
 form: ``F.grid_sample`` (bilinear, zero padding, ``align_corners=False``)
 per level, weighted by the attention and summed.
 
-Per view: ResNet trunk (torchvision v1.5 bottlenecks; a bias-free 1x1
-``adjustment_layer`` maps non-RGB input to 3 channels), the raw input as
+Per view: the backbone trunk, by family as the program's registry
+dispatches (the first of ``resnet``, ``convnext``, ``regnet``, ``swin``
+that the lower-cased name contains): ResNet (torchvision v1.5
+bottlenecks) here, Swin v1 in ``swin_ref``; ConvNeXt and RegNet have no
+reference and raise ``ValueError``. A bias-free 1x1 ``adjustment_layer``
+maps non-RGB input to 3 channels. Then the raw input as
 level 0 (the skiplink), an FPN (1x1 laterals, nearest top-down, 3x3
 outputs) and DETR's normalised sine embedding with the x and y encodings
 summed. Then the data-agnostic query grid (spherical to cartesian), and
@@ -31,6 +35,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from reference import swin_ref
 
 Params = Dict[str, torch.Tensor]
 
@@ -103,6 +109,27 @@ def resnet(p: Params, key: str, x: torch.Tensor, variant: str,
     return outs
 
 
+def family(name: str) -> str:
+    """The backbone family of ``name``: the first of the program's
+    registry's keys that the lower-cased name contains."""
+    for key in ("resnet", "convnext", "regnet", "swin"):
+        if key in name.lower():
+            return key
+    raise ValueError(f"unknown backbone {name!r}")
+
+
+def backbone(p: Params, key: str, x: torch.Tensor, name: str,
+             multi_scale: int, ctx: Ctx) -> List[torch.Tensor]:
+    """The stage outputs 1..multi_scale (NCHW) of backbone ``name``."""
+    kind = family(name)
+    if kind == "resnet":
+        return resnet(p, key, x, name.lower(), multi_scale, ctx)
+    if kind == "swin":
+        return swin_ref.swin(p, key, x, name.lower(), multi_scale)
+    raise ValueError(f"the reference has no {kind} backbone ({name!r}): "
+                     "it covers ResNet and Swin")
+
+
 def fpn(p: Params, key: str, levels: List[torch.Tensor]) -> List[torch.Tensor]:
     f = f"{key}.fpn"
     lat = [F.conv2d(x, p[f"{f}.inner_blocks.{i}.0.weight"],
@@ -147,8 +174,8 @@ def view_features(p: Params, config: dict, view: str, raw: torch.Tensor,
     model = config["model"]
     bb = model["backbones"][view]
     x = raw.permute(0, 3, 1, 2)
-    levels = resnet(p, f"backbones.{view}", x, bb["name"].lower(),
-                    bb.get("multi_scale", 1), ctx)
+    levels = backbone(p, f"backbones.{view}", x, bb["name"],
+                      bb.get("multi_scale", 1), ctx)
     if model.get("skiplinks", {}).get(view, False):
         levels = [x] + levels
     levels = fpn(p, f"necks.{view}", levels)

@@ -1,6 +1,8 @@
 """Every cell at a tiny size on the CPU through the harness's own run
 (``harness.runner.execute``: set-up, window, check), its result line, and
-the faults its check has to catch."""
+the faults its check has to catch. The cells of ``kradar`` that run the
+model also run with a Swin camera, and their check has to catch Swin's
+own faults."""
 
 import copy
 import dataclasses
@@ -12,12 +14,24 @@ import time
 import pytest
 import torch
 
-from conftest import BENCH, ROOT
+from conftest import BENCH, ROOT, load_tiny
 from harness import runner, spec
 
 CPU = torch.device("cpu")
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
+
+
+def _generator(w):
+    return json.loads((BENCH / "traffic" / f"{w['traffic']}.json"
+                       ).read_text())["generator"]
+
+
+# The cells whose model has a camera, run again with a Swin one.
+SWIN_CELLS = [w["name"] for w in SPEC["workloads"]
+              if w["config"] == "kradar" and _generator(w) != "prepare"]
+CELL_CASES = ([pytest.param(n, "resnet", id=n) for n in CELLS]
+              + [pytest.param(n, "swin", id=f"{n}-swin") for n in SWIN_CELLS])
 TINY_TRAFFIC = {
     "serve": {"warmup_calls": 2, "trace_calls": 2, "sample": 4},
     "train": {"boxes": [1, 8], "warmup_steps": 1, "trace_steps": 1},
@@ -63,9 +77,9 @@ def _threads():
     torch.set_num_threads(before)
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_cell_runs_and_is_correct_at_a_tiny_size(name, tiny_config):
-    cell = tiny_cell(name, tiny_config)
+@pytest.mark.parametrize("name,kind", CELL_CASES)
+def test_cell_runs_and_is_correct_at_a_tiny_size(name, kind):
+    cell = tiny_cell(name, load_tiny(kind))
     result, _ = drive(cell)
     assert list(result)[:5] == ["correct", "attempted", "failed", "metrics",
                                 "device"]
@@ -181,6 +195,38 @@ def _alter_plane(driver):
     driver.setup = patched
 
 
+def _swin_attention(driver, fault):
+    """Applies ``fault`` to every window attention of the program's Swin
+    trunk once set-up is done, so that the window serves with it."""
+    setup = driver.setup
+
+    def patched():
+        setup()
+        found = [m for m in driver.model.modules()
+                 if hasattr(m, "relative_position_index")]
+        assert found
+        for m in found:
+            fault(m)
+
+    driver.setup = patched
+
+
+def _index_zeroed(driver):
+    """Swin's relative-position index zeroed in the program: every pair
+    of positions reads row 0 of the bias table."""
+    _swin_attention(driver, lambda m: m.relative_position_index.zero_())
+
+
+def _mask_dropped(driver):
+    """Swin's shifted-window mask left out in the program: positions that
+    the roll brought together attend to each other."""
+    def drop(m):
+        inner = m._mask
+        m._mask = lambda *args: torch.zeros_like(inner(*args))
+
+    _swin_attention(driver, drop)
+
+
 FAULTS = {
     "serve": [("answer_altered", _alter_answer)],
     "train": [("state_unchanged", _unchanged_state),
@@ -189,16 +235,19 @@ FAULTS = {
               ("leaf_doubled", _leaf_doubled)],
     "prepare": [("answer_altered", _alter_plane)],
 }
-FAULT_CASES = [(w["name"], f, p) for w in SPEC["workloads"]
-               for f, p in FAULTS[json.loads(
-                   (BENCH / "traffic" / f"{w['traffic']}.json").read_text())
-                   ["generator"]]]
+SWIN_FAULTS = {"serve": [("index_zeroed", _index_zeroed),
+                         ("mask_dropped", _mask_dropped)]}
+FAULT_CASES = (
+    [pytest.param(w["name"], f, p, "resnet", id=f"{w['name']}-{f}")
+     for w in SPEC["workloads"] for f, p in FAULTS[_generator(w)]]
+    + [pytest.param(w["name"], f, p, "swin", id=f"{w['name']}-{f}-swin")
+       for w in SPEC["workloads"] if w["name"] in SWIN_CELLS
+       for f, p in SWIN_FAULTS.get(_generator(w), [])])
 
 
-@pytest.mark.parametrize("name,fault,patch", FAULT_CASES,
-                         ids=[f"{n}-{f}" for n, f, _ in FAULT_CASES])
-def test_check_catches_fault(name, fault, patch, tiny_config):
-    cell = tiny_cell(name, tiny_config)
+@pytest.mark.parametrize("name,fault,patch,kind", FAULT_CASES)
+def test_check_catches_fault(name, fault, patch, kind):
+    cell = tiny_cell(name, load_tiny(kind))
     result, lines = drive(cell, patch=patch)
     assert not result["correct"], (fault, result["checks"])
 

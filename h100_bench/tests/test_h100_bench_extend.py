@@ -8,7 +8,9 @@ import shutil
 import subprocess
 import sys
 
-from conftest import BENCH, ROOT
+import pytest
+
+from conftest import BENCH, ROOT, TINY
 
 READER = '''"""Frames inside the profiler window (a test's dummy metric)."""
 
@@ -43,15 +45,15 @@ def _digests(root):
             and "__pycache__" not in p.parts}
 
 
-def test_a_cell_mix_and_metric_added_as_files(tmp_path):
+@pytest.mark.parametrize("kind", list(TINY))
+def test_a_cell_mix_and_metric_added_as_files(tmp_path, kind):
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     bench = tmp_path / "h100_bench"
     shutil.copytree(BENCH, bench,
                     ignore=shutil.ignore_patterns("__pycache__"))
     before = _digests(tmp_path)
 
-    shutil.copy(BENCH / "tests" / "tiny_kradar.json",
-                bench / "configs" / "tiny.json")
+    shutil.copy(BENCH / "tests" / TINY[kind], bench / "configs" / "tiny.json")
     mix = json.loads((BENCH / "traffic" / "serve-b1.json").read_text())
     mix.update(batch=2, pool=2, warmup_calls=2, trace_calls=2, sample=2)
     (bench / "traffic" / "serve-b2.json").write_text(json.dumps(mix))
