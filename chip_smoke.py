@@ -223,8 +223,11 @@ not 0:
    12 ``msda_fwd`` and 12 ``msda_bwd`` launches; a finite B=1 bf16
    forward; the FLOP count equal to the reckoning by hooks; forward ms at
    B=1 and B=4 and train step ms by CUDA events, peak memory, build
-   seconds. Every phase from export_mm on prints its seconds, and the
-   script its total.
+   seconds. In the Swin-T model the forward takes every block's attention
+   through ``window_attn_fwd`` (one launch a block and view), its
+   reference the plain attention (``_plain_core_eager``), and the bf16
+   forward launches exactly what the f32 one does. Every phase from
+   export_mm on prints its seconds, and the script its total.
 17. Configs (after phase 16): the four other shipped configs (the camera
    alone, both radar views, the BEV plane alone, the front plane alone) at
    full width from seed 0, each held as phase 16 holds a family: exactly
@@ -312,6 +315,18 @@ not 0:
    (overfit_flagship); the loss finite and its last epoch below half its
    first; the small recipe's floor readings printed, not held.
 
+24. Window attention (``phase_window_attn``, before phase 16):
+   ``window_attn_fwd`` against ``window_attention_plain`` on the card at
+   the four stage shapes of the Swin-B camera at 512x910 (B=1), unshifted
+   and shifted by 3: float32 within 1e-5 of the plain output's largest
+   element, bfloat16 qkv within 2e-2 of the plain version on the same
+   bfloat16 values in float32. Device times (busy time by the profiler,
+   ``profiling.device_activity``; the kernel's CUDA-event time beside it,
+   which a wrapper call's host work sets in stages 3 and 4) of the kernel,
+   the plain version, and PyTorch's fused attention on the partitioned
+   windows (``_window_attn_library``), per stage and shift and over one
+   frame's 24 blocks, each beside its bound.
+
 The kernel report gives, for every kernel, its launches on every main
 path (serve, export, train, eval_dp and train_dp (rank 0's: 9 eval
 forwards, one step), train_tp, train_remat, serve_mm,
@@ -333,6 +348,12 @@ the matmul form itself computes are printed apart, in the per-level lines.
 PyTorch core, ``grid_sample`` per level times the attention, summed
 (``grid_sample_core``, the camera call at B=1 / B=4, forward / autograd's
 backward); null for the radar kernels: no PyTorch call computes a plane.
+For ``window_attn_fwd`` the times (device busy time by the profiler), the
+bound and ``library_ms`` (roll, window partition and
+``F.scaled_dot_product_attention`` with the bias and mask as one additive
+mask made beforehand) are of one Swin-B camera frame's 24 calls at B=1;
+its ``replaces`` is null: the JAX package
+computes Swin's attention with plain XLA operations.
 
 The last two lines are the kernel report and the result:
     {"kernels": [...]}
@@ -363,7 +384,7 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 REPS = 20  # timed forwards of the evaluator's latency phase
 KERNELS = ("msda_fwd", "msda_bwd", "msda_mm_fwd", "msda_mm_bwd",
-           "radar_reduce_ra", "radar_reduce_ea")
+           "radar_reduce_ra", "radar_reduce_ea", "window_attn_fwd")
 # Matmul-form border cases (BH, h, w, D, S, placement of the points): odd
 # head dims, points on integer coordinates and at +-1e9; and what the 16 x 16
 # tiles of csrc/msda_mm.cu make hard: a level smaller than one tile, h and w
@@ -445,8 +466,9 @@ def _bound(n_bytes, flops):
 def _kernel_wrappers():
     from dpft_tpu_torch.ops import deform_attn as da
     from dpft_tpu_torch.ops import radar_reduce as rr
+    from dpft_tpu_torch.ops import window_attn as wa
 
-    return {**da.LAUNCH_COUNTED, **rr.LAUNCH_COUNTED}
+    return {**da.LAUNCH_COUNTED, **rr.LAUNCH_COUNTED, **wa.LAUNCH_COUNTED}
 
 
 def _reset_launches():
@@ -464,7 +486,9 @@ def _expected_launches(config, view_shapes, forwards, steps):
     under "mm" one ``msda_mm_*`` launch per view that has a level up to the
     cutoff (all its matmul levels go in one launch) and one of kernel #1
     per level above it, per fusion iteration; else one launch of kernel #1
-    per view and iteration."""
+    per view and iteration; one ``window_attn_fwd`` launch per Swin block
+    of every forward that no backward follows (those run without
+    gradient)."""
     from dpft_tpu_torch.models.fusers.mpfusion import msda_backend_from_config
     from dpft_tpu_torch.ops.deform_attn import MM_MAX_LEVELS, _MATMUL_MAX_HW
 
@@ -481,7 +505,22 @@ def _expected_launches(config, view_shapes, forwards, steps):
     expected = dict.fromkeys(KERNELS, 0)
     expected.update({k: fuser["i_iter"] * n * times
                      for k, (n, times) in per.items()})
+    expected["window_attn_fwd"] = _swin_blocks(config) * (forwards - steps)
     return expected
+
+
+def _swin_blocks(config):
+    """Swin blocks of the model of ``config``, over every view."""
+    from dpft_tpu_torch.models.backbones.swin import _VARIANTS
+
+    model = config["model"]
+    blocks = 0
+    for view in model["inputs"]:
+        bcfg = model["backbones"][view]
+        variant = _VARIANTS.get(bcfg["name"].lower())
+        if variant is not None:
+            blocks += sum(variant[1][:bcfg.get("multi_scale", 1)])
+    return blocks
 
 
 def _plain_core(value, shapes, loc, att, backend="gather"):
@@ -504,19 +543,24 @@ class _Eager(torch.overrides.TorchFunctionMode):
 
 @contextlib.contextmanager
 def _plain_core_eager():
-    """The layer's MSDA core swapped for the plain one in this process, and
-    every stage held eager (``_Eager``): a replay would run the kernels
-    that its capture saw, not the swapped core. Every eval forward on a
-    swapped core goes through here."""
+    """The layer's MSDA core swapped for the plain one in this process,
+    every Swin block on its plain attention, and every stage held eager
+    (``_Eager``): a replay would run the kernels that its capture saw, not
+    the swapped core. Every eval forward on a swapped core goes through
+    here."""
     import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
+    from dpft_tpu_torch.models.backbones import swin
     from dpft_tpu_torch.ops import deform_attn as da
 
+    fused = swin.fused
     msda_layer.ms_deform_attn_core = _plain_core
+    swin.fused = lambda qkv: False
     try:
         with _Eager():
             yield
     finally:
         msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
+        swin.fused = fused
 
 
 def phase_device():
@@ -672,6 +716,123 @@ def phase_kernel_vs_plain(view_shapes):
 
 def _to_cuda(batch):
     return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+# The Swin-B camera's stages at 512x910: (H, W, C, heads, blocks).
+SWIN_B_STAGES = ((128, 227, 128, 4, 2), (64, 114, 256, 8, 2),
+                 (32, 57, 512, 16, 18), (16, 29, 1024, 32, 2))
+
+
+def _window_attn_library(qkv, bias_mask, heads, shift):
+    """Window attention through PyTorch's fused attention: the map rolled
+    and cut into windows, ``F.scaled_dot_product_attention`` with
+    ``bias_mask`` (the bias plus, when shifted, the mask), the reverse."""
+    import torch.nn.functional as F
+
+    B, Hp, Wp, C3 = qkv.shape
+    C, w = C3 // 3, 7
+    if any(shift):
+        qkv = torch.roll(qkv, (-shift[0], -shift[1]), dims=(1, 2))
+    qkv = qkv.reshape(B, Hp // w, w, Wp // w, w, C3).permute(
+        0, 1, 3, 2, 4, 5).reshape(-1, w * w, 3, heads, C // heads).permute(
+        2, 0, 3, 1, 4)
+    out = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                         attn_mask=bias_mask)
+    out = out.transpose(1, 2).reshape(B, Hp // w, Wp // w, w, w, C).permute(
+        0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
+    if any(shift):
+        out = torch.roll(out, shift, dims=(1, 2))
+    return out
+
+
+def phase_window_attn():
+    """``window_attn_fwd`` against the plain version at the Swin-B
+    camera's stages (see the module docstring); returns the kernel report
+    entry, its times and bound those of one frame's 24 calls."""
+    from dpft_tpu_torch.ops import window_attn as wa
+    from dpft_tpu_torch.utils import profiling
+
+    def device_ms(fn):
+        return profiling.device_activity(fn, reps=10, device="cuda").busy_ms
+
+    w = wa.WINDOW
+    index = wa.relative_position_index(w).cuda()
+    gen = torch.Generator("cuda").manual_seed(0)
+    max_err = 0.0
+    frame = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    bound_by = set()
+    for H, W, C, heads, blocks in SWIN_B_STAGES:
+        Hp, Wp = -(-H // w) * w, -(-W // w) * w
+        qkv = torch.randn(1, Hp, Wp, 3 * C, device="cuda", generator=gen)
+        table = torch.randn((2 * w - 1) ** 2, heads, device="cuda",
+                            generator=gen)
+        low = qkv.bfloat16()
+        for s in (0, w // 2):   # every stage's padded sides exceed a window
+            shift = (s, s)
+            mask = wa.shift_mask(Hp, Wp, w, shift, "cuda") if s else None
+            bias = table[index].reshape(w * w, w * w, heads).permute(2, 0, 1)
+            bias_mask = (bias[None] + mask[:, None] if s
+                         else bias[None]).contiguous()
+            with torch.inference_mode():
+                got = wa.window_attn_fwd(qkv, table, index, heads, *shift)
+                want = wa.window_attention_plain(qkv, table, index, heads,
+                                                 shift, mask)
+                got_low = wa.window_attn_fwd(low, table, index, heads,
+                                             *shift)
+                want_low = wa.window_attention_plain(
+                    low.float(), table, index, heads, shift, mask)
+                lib = _window_attn_library(qkv, bias_mask, heads, shift)
+                torch.cuda.synchronize()
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            err_low = ((got_low.float() - want_low).abs().max().item()
+                       / want_low.abs().max().item())
+            err_lib = (lib - want).abs().max().item() / scale
+            if got_low.dtype != torch.bfloat16 or \
+                    not err <= TOL[torch.float32] * scale or \
+                    not err_low <= TOL[torch.bfloat16]:
+                raise AssertionError(
+                    f"window_attn_fwd {H}x{W}x{C} shift {s}: f32 err "
+                    f"{err:.3e} of {scale:.3e}, bf16 {err_low:.3e} of the "
+                    f"largest ({got_low.dtype})")
+            max_err = max(max_err, err)
+            with torch.inference_mode():
+                e_ms = _cuda_ms(lambda: wa.window_attn_fwd(
+                    qkv, table, index, heads, *shift))
+                k_ms = device_ms(lambda: wa.window_attn_fwd(
+                    qkv, table, index, heads, *shift))
+                p_ms = device_ms(lambda: wa.window_attention_plain(
+                    qkv, table, index, heads, shift, mask))
+                l_ms = device_ms(lambda: _window_attn_library(
+                    qkv, bias_mask, heads, shift))
+            # qkv, the table and the index read once, the output written
+            # once; both products over the padded windows.
+            bound = _bound(_nbytes(qkv, table, index, got),
+                           wa.window_attn_operations(qkv.shape))
+            bound_by.add(bound[1])
+            for key, ms in (("ms", k_ms), ("plain_ms", p_ms),
+                            ("library_ms", l_ms), ("bound_ms", bound[0])):
+                frame[key] += blocks / 2 * ms   # half the blocks shifted
+            print(f"[window_attn] {H}x{W} (padded {Hp}x{Wp}) C={C} "
+                  f"heads={heads} shift={s}: f32 max_abs_err={err:.3e} of "
+                  f"{scale:.3e} (tol {TOL[torch.float32]} of it), bf16 "
+                  f"{err_low:.3e} of the largest (tol "
+                  f"{TOL[torch.bfloat16]}); on the card: kernel "
+                  f"{1e3 * k_ms:.2f} us ({1e3 * e_ms:.2f} by events), "
+                  f"plain {1e3 * p_ms:.2f} us, library {1e3 * l_ms:.2f} us "
+                  f"(gap {err_lib:.2e} of the largest), bound "
+                  f"{1e3 * bound[0]:.2f} us ({bound[1]}); "
+                  f"{100 * bound[0] / k_ms:.1f}% of the bound")
+    print(f"[window_attn] one Swin-B frame (24 calls, B=1), on the card: "
+          f"kernel "
+          f"{1e3 * frame['ms']:.1f} us, plain {1e3 * frame['plain_ms']:.1f} "
+          f"us, library {1e3 * frame['library_ms']:.1f} us, bound "
+          f"{1e3 * frame['bound_ms']:.1f} us: the kernel at "
+          f"{100 * frame['bound_ms'] / frame['ms']:.1f}% of the bound")
+    return {"name": "window_attn_fwd", "route": "cuda",
+            "source": "dpft_tpu_torch/csrc/window_attn.cu", "replaces": None,
+            "max_abs_err": max_err, **frame,
+            "bound_by": "+".join(sorted(bound_by))}
 
 
 def phase_flagship(config, model):
@@ -2965,13 +3126,19 @@ def _hold_model(tag, label, fconfig, desc):
                                  f"{err:.3e} of {scale}")
         errs.append(err / max(scale, 1e-30))
 
-    # B=1 bf16 forward: finite, its distance from f32 printed.
+    # B=1 bf16 forward: finite, through the same kernels as f32, its
+    # distance from f32 printed.
     model.compute_dtype = torch.bfloat16
     with torch.inference_mode():
+        _reset_launches()
         low = model(batches[1])
+        bf16_launches = _read_launches()
     model.compute_dtype = torch.float32
     if not all(torch.isfinite(v).all() for v in low.values()):
         raise AssertionError(f"{desc}: non-finite bf16 outputs")
+    if bf16_launches != fwd_launches:
+        raise AssertionError(f"{desc} bf16 forward launched "
+                             f"{bf16_launches}, f32 {fwd_launches}")
     bf16_err = max(((low[k].float() - out[k]).abs().max()
                     / out[k].abs().max().clamp_min(1e-30)).item()
                    for k in out)
@@ -5399,6 +5566,7 @@ def main():
     fwd_report["library_ms"] = library["fwd", "camera_mono", B1]
     bwd_report["library_ms"] = library["bwd", "camera_mono", B_TRAIN]
     _timed("radar_kernel_times", phase_radar_kernel_times)
+    wa_report = _timed("window_attn", phase_window_attn)
     del mm_model
     torch.cuda.empty_cache()
     paths.update(_timed("families", phase_families, config))
@@ -5411,7 +5579,8 @@ def main():
     # `launches` is the count on the kernel's own main path.
     reports = [(fwd_report, "train"), (bwd_report, "train"),
                (mm_fwd_report, "train_mm"), (mm_bwd_report, "train_mm"),
-               (ra_report, "prepare"), (ea_report, "prepare")]
+               (ra_report, "prepare"), (ea_report, "prepare"),
+               (wa_report, "serve_swin")]
     for report, own_path in reports:
         name = report["name"]
         report["launches"] = paths[own_path][name]

@@ -13,6 +13,7 @@ and the outputs {'1', ..., '<multi_scale>'} are NCHW.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import torch
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from dpft_tpu_torch.models.graphs import stage
 from dpft_tpu_torch.models.layers.common import Permute
+from dpft_tpu_torch.utils import profiling
 
 _VARIANTS = {
     # name: (depths, dims)
@@ -79,16 +81,21 @@ def convnext_features(variant: str, multi_scale: int) -> nn.Sequential:
 
 
 def stage_outputs(body: nn.Sequential, x: torch.Tensor,
-                  channels_last: bool = False) -> Dict[str, torch.Tensor]:
+                  channels_last: bool = False,
+                  spans: bool = False) -> Dict[str, torch.Tensor]:
     """Runs a ``features`` Sequential and returns the output of every stage
     (its odd indices) as NCHW, {'1', ...}; ``channels_last``: the stages
-    work on (B, H, W, C) tensors."""
+    work on (B, H, W, C) tensors; ``spans``: stage ``s``, the layer before
+    it included, opens the span ``.stage<s>`` under the span open around
+    the call (``utils/profiling.py``)."""
     outputs = {}
-    for i, layer in enumerate(body):
-        x = layer(x)
-        if i % 2:
-            outputs[str(len(outputs) + 1)] = (x.permute(0, 3, 1, 2)
-                                              if channels_last else x)
+    layers = iter(body)
+    for entry, blocks in zip(layers, layers):
+        with (profiling.span(f".stage{len(outputs) + 1}") if spans
+              else contextlib.nullcontext()):
+            x = blocks(entry(x))
+        outputs[str(len(outputs) + 1)] = (x.permute(0, 3, 1, 2)
+                                          if channels_last else x)
     return outputs
 
 

@@ -12,11 +12,24 @@ each stage output is permuted to NCHW for the FPN, so the outputs
 {'1', ..., '<multi_scale>'} are NCHW like every backbone's.
 
 Windows of 7 x 7, shifted by 3 in every second block. A map is padded to a
-multiple of the window before it is cut into windows, and the shift is
-turned off along an axis whose padded size one window covers
-(torchvision's ``shifted_window_attention``); patch merging pads an odd
-side. The additive masks of the shifted windows (-100 across regions)
-depend on the padded shape only and are built once per shape and device.
+multiple of the window before qkv, and the shift is turned off along an
+axis whose padded size one window covers (torchvision's
+``shifted_window_attention``); patch merging pads an odd side. From qkv's
+output to proj's input the attention is ``ops/window_attn.py``: where no
+gradient is needed (``inference_mode`` or ``no_grad``) and qkv is on a
+CUDA device, or while ``torch.export`` traces, one call of the operator
+``dpft::window_attn_fwd`` (on the card the kernel ``csrc/window_attn.cu``,
+float32 or bfloat16 qkv); otherwise (training, the CPU) its plain
+operations. Each call counts ``dpft.window_attn.fused`` or
+``dpft.window_attn.plain`` (``utils/profiling.py``). The additive masks of
+the shifted windows (-100 across regions) depend on the padded shape only
+and are built once per shape and device, on the device; the
+relative-position index is built on the default device, so a model built
+under ``torch.device(...)`` holds every buffer there. Each stage of the
+trunk opens the span ``.stage<s>`` under the span open around the trunk
+(``utils/profiling.py``; in a DPFT model
+``dpft.frontend.view<v>.backbone.stage<s>``), s = 1..4: the patch
+embedding in stage 1, each merge in the stage it feeds.
 LayerNorm eps 1e-5, exact GELU; no stochastic depth (the JAX package has
 none).
 """
@@ -25,7 +38,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -33,6 +45,10 @@ import torch.nn.functional as F
 from dpft_tpu_torch.models.backbones.convnext import stage_outputs
 from dpft_tpu_torch.models.graphs import stage
 from dpft_tpu_torch.models.layers.common import Permute
+from dpft_tpu_torch.ops import window_attn
+from dpft_tpu_torch.ops.window_attn import (WINDOW, relative_position_index,
+                                            shift_mask)
+from dpft_tpu_torch.utils import profiling
 
 _VARIANTS = {
     # name: (embed_dim, depths, num_heads)
@@ -40,37 +56,16 @@ _VARIANTS = {
     "swin_s": (96, (2, 2, 18, 2), (3, 6, 12, 24)),
     "swin_b": (128, (2, 2, 18, 2), (4, 8, 16, 32)),
 }
-WINDOW = 7
 _EPS = 1e-5
 
 
-def relative_position_index(w: int) -> torch.Tensor:
-    """(w^4,) int64: for every pair of positions of a w x w window the row
-    of the bias table, torchvision's flattened buffer."""
-    coords = np.stack(np.meshgrid(np.arange(w), np.arange(w), indexing="ij"))
-    flat = coords.reshape(2, -1)
-    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0) + (w - 1)
-    return torch.from_numpy(rel[..., 0] * (2 * w - 1) + rel[..., 1]).reshape(-1)
-
-
-def shift_mask(Hp: int, Wp: int, w: int, shift: Tuple[int, int]
-               ) -> np.ndarray:
-    """(windows, w*w, w*w) float32 additive mask of shifted-window
-    attention on a padded (Hp, Wp) map: 0 within a region, -100 across; an
-    axis with shift 0 is one region."""
-    def bounds(s):
-        return ((0, -w), (-w, -s if s else None), (-s if s else None, None))
-
-    regions = np.zeros((Hp, Wp), np.float32)
-    label = 0
-    for h0, h1 in bounds(shift[0]):
-        for w0, w1 in bounds(shift[1]):
-            regions[h0:h1, w0:w1] = label
-            label += 1
-    windows = regions.reshape(Hp // w, w, Wp // w, w).transpose(
-        0, 2, 1, 3).reshape(-1, w * w)
-    diff = windows[:, None, :] - windows[:, :, None]
-    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+def fused(qkv: torch.Tensor) -> bool:
+    """Whether a block takes ``dpft::window_attn_fwd`` for ``qkv``: no
+    gradient is needed and qkv is on a CUDA device, or an export traces
+    (the exported program then holds the operator, whatever device it was
+    traced on)."""
+    return not torch.is_grad_enabled() and (
+        qkv.is_cuda or torch.compiler.is_exporting())
 
 
 class ShiftedWindowAttention(nn.Module):
@@ -97,40 +92,30 @@ class ShiftedWindowAttention(nn.Module):
         if mask is None:
             # Made outside inference mode: one mask serves both modes.
             with torch.inference_mode(False):
-                mask = torch.from_numpy(shift_mask(Hp, Wp, WINDOW, shift)
-                                        ).to(device)
+                mask = shift_mask(Hp, Wp, WINDOW, shift, device)
             self._masks[key] = mask
         return mask
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C) -> (B, H, W, C)."""
-        B, H, W, C = x.shape
-        w, heads = WINDOW, self.num_heads
+        H, W = x.shape[1], x.shape[2]
+        w = WINDOW
         x = F.pad(x, (0, 0, 0, (w - W % w) % w, 0, (w - H % w) % w))
         Hp, Wp = x.shape[1], x.shape[2]
         shift = (self.shift if Hp > w else 0, self.shift if Wp > w else 0)
-        if any(shift):
-            x = torch.roll(x, (-shift[0], -shift[1]), dims=(1, 2))
-        windows = x.reshape(B, Hp // w, w, Wp // w, w, C).permute(
-            0, 1, 3, 2, 4, 5).reshape(-1, w * w, C)
-        n, N = windows.shape[:2]
-        qkv = self.qkv(windows).reshape(n, N, 3, heads, C // heads).permute(
-            2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * (C // heads) ** -0.5, qkv[1], qkv[2]
-        attn = q @ k.transpose(-2, -1)
-        bias = self.relative_position_bias_table[self.relative_position_index]
-        attn = attn + bias.reshape(N, N, heads).permute(2, 0, 1)
-        if any(shift):
-            mask = self._mask(Hp, Wp, shift, x.device)
-            attn = (attn.reshape(B, mask.shape[0], heads, N, N)
-                    + mask[None, :, None]).reshape(n, heads, N, N)
-        out = torch.softmax(attn, dim=-1) @ v
-        out = self.proj(out.transpose(1, 2).reshape(n, N, C))
-        out = out.reshape(B, Hp // w, Wp // w, w, w, C).permute(
-            0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
-        if any(shift):
-            out = torch.roll(out, shift, dims=(1, 2))
-        return out[:, :H, :W]
+        qkv = self.qkv(x)
+        table, index = (self.relative_position_bias_table,
+                        self.relative_position_index)
+        if fused(qkv):
+            profiling.count(profiling.WINDOW_ATTN_FUSED)
+            out = torch.ops.dpft.window_attn_fwd(qkv, table, index,
+                                                 self.num_heads, *shift)
+        else:
+            profiling.count(profiling.WINDOW_ATTN_PLAIN)
+            mask = self._mask(Hp, Wp, shift, x.device) if any(shift) else None
+            out = window_attn.window_attention_plain(
+                qkv, table, index, self.num_heads, shift, mask)
+        return self.proj(out)[:, :H, :W]
 
 
 class SwinBlock(nn.Module):
@@ -193,9 +178,11 @@ class SwinBackbone(nn.Module):
 
     @stage
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The output of every stage, NCHW, {'1', ...}; a stage is the
+        patch embedding or a merge and the blocks after it."""
         if self.adjustment_layer is not None:
             x = self.adjustment_layer(x)
-        return stage_outputs(self.body, x, channels_last=True)
+        return stage_outputs(self.body, x, channels_last=True, spans=True)
 
 
 def build_swin(name: str, config: Dict[str, Any]) -> SwinBackbone:

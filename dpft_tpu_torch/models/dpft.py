@@ -42,7 +42,8 @@ stage (the fuser's) record only when it runs eagerly.
 
 Spans (``utils/profiling.py``): ``dpft.forward`` holds ``dpft.frontend``
 (``features``; per view ``v`` in input order
-``dpft.frontend.view<v>.backbone`` / ``.neck`` / ``.embedding``) and
+``dpft.frontend.view<v>.backbone`` (in a Swin trunk, per stage ``s``
+``.backbone.stage<s>``) / ``.neck`` / ``.embedding``) and
 ``dpft.decoder`` (``dpft.decoder.querent`` and the fuser's spans). Under
 remat the recomputed backbone opens its span again inside the backward.
 """

@@ -46,15 +46,18 @@ was rebound or moved (``.to()``, ``load_state_dict(assign=True)``, a new
 over with an eager call.
 
 The launch counters of the hand-written kernels' wrappers
-(``ops/deform_attn.py``: ``msda_fwd.launches`` ...) count a replay's
+(``ops/deform_attn.py``: ``msda_fwd.launches`` ...,
+``ops/window_attn.py``: ``window_attn_fwd.launches``) count a replay's
 launches of those kernels as an eager call counts them; the capture itself
-launches nothing and counts nothing. The program's counters
+launches nothing and counts nothing. So do the program's counters that the
+stage's own code advances (``utils/profiling.py:count``, such as
+``dpft.window_attn.fused``): what the capture counted, in a tally, each
+replay counts again, while a profiler records. The program's counters
 ``dpft.graph.replays``, ``dpft.graph.captures`` and ``dpft.graph.eager``
-(``utils/profiling.py``) count, while a profiler records, the stage calls
-that the first three conditions above let graph: those that replay, those
-that capture, and those that run eagerly (a capturing call among them: it
-runs the warm-up). One thread at a time calls the models of a device, on
-one stream.
+count, while a profiler records, the stage calls that the first three
+conditions above let graph: those that replay, those that capture, and
+those that run eagerly (a capturing call among them: it runs the warm-up).
+One thread at a time calls the models of a device, on one stream.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ import torch
 import torch.nn as nn
 from torch.nn.modules import module as _module
 
-from dpft_tpu_torch.ops import deform_attn
+from dpft_tpu_torch.ops import deform_attn, window_attn
 from dpft_tpu_torch.utils import profiling
 
 GRAPH_DEVICES = ("cuda",)
@@ -77,7 +80,8 @@ _MAX_SEEN = 16      # keys a stage remembers having run once
 _CONSTANTS = (int, float, str, type(None), torch.dtype, torch.device)
 _PLAIN = (torch.Tensor, nn.Parameter)
 # The hand-written kernels' wrappers whose ``launches`` a replay advances.
-_COUNTED = tuple(deform_attn.LAUNCH_COUNTED.values())
+_COUNTED = (*deform_attn.LAUNCH_COUNTED.values(),
+            *window_attn.LAUNCH_COUNTED.values())
 
 # Bumped by every registration of a module, parameter or buffer anywhere:
 # a stage then looks at its own tree again.
@@ -193,22 +197,26 @@ def _sources(indexes: List[Any], tensors: List[torch.Tensor]
 
 class _Graph:
     """One captured stage call: the graph, its inputs (indexes and
-    buffers, see ``_static_input``) and outputs, and the launches of the
-    counted wrappers it makes. Inputs and outputs are copied with one
-    ``_foreach_copy_`` each."""
+    buffers, see ``_static_input``) and outputs, the launches of the
+    counted wrappers it makes and the program's counts of its capture.
+    Inputs and outputs are copied with one ``_foreach_copy_`` each."""
 
     __slots__ = ("graph", "indexes", "buffers", "outputs", "spec",
-                 "launches")
+                 "launches", "counts")
 
-    def __init__(self, graph, indexes, buffers, outputs, spec, launches):
+    def __init__(self, graph, indexes, buffers, outputs, spec, launches,
+                 counts):
         self.graph, self.indexes, self.buffers = graph, indexes, buffers
         self.outputs, self.spec, self.launches = outputs, spec, launches
+        self.counts = counts
 
     def replay(self, tensors: List[torch.Tensor]) -> Any:
         torch._foreach_copy_(self.buffers, _sources(self.indexes, tensors))
         self.graph.replay()
         for wrapper, n in zip(_COUNTED, self.launches):
             wrapper.launches += n
+        for name, n in self.counts.items():
+            profiling.count(name, n)
         outs = [torch.empty_like(t) for t in self.outputs]
         torch._foreach_copy_(outs, self.outputs)
         return _unflatten(self.spec, iter(outs))
@@ -271,14 +279,16 @@ def _record(forward: Callable, module: nn.Module, spec: Any,
             tensors: List[torch.Tensor]) -> Any:
     """Captures the stage on the current stream with inputs of its own;
     ``_FAILED`` where that raises. The wrappers' launch counters read after
-    it as before it."""
+    it as before it; the program's counts of the capture go to a tally."""
     before = [w.launches for w in _COUNTED]
     try:
         indexes, buffers, views = map(list, zip(*map(_static_input,
                                                      tensors)))
         torch._foreach_copy_(buffers, _sources(indexes, tensors))
         args, kwargs = _unflatten(spec, iter(views))
-        graph, result = _captured(lambda: forward(module, *args, **kwargs))
+        with profiling.tally() as counts:
+            graph, result = _captured(
+                lambda: forward(module, *args, **kwargs))
         launches = [w.launches - n for w, n in zip(_COUNTED, before)]
         outputs: List[torch.Tensor] = []
         out_spec = _flatten(result, outputs)
@@ -289,7 +299,8 @@ def _record(forward: Callable, module: nn.Module, spec: Any,
     finally:
         for wrapper, n in zip(_COUNTED, before):
             wrapper.launches = n
-    return _Graph(graph, indexes, buffers, outputs, out_spec, launches)
+    return _Graph(graph, indexes, buffers, outputs, out_spec, launches,
+                  counts)
 
 
 class _Stage:

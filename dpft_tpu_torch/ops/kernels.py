@@ -123,11 +123,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dpft_msda_mm_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                      ptr, ptr, i64, i32, i32, i32, levels,
                                      i32, i32, i32, i32, ptr]
+    # (qkv, table, index, out, dtype, B, Hp, Wp, C, heads, shift_h, shift_w,
+    #  scale, stream)
+    lib.dpft_window_attn_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                         i32, i32, i32, i32, i32,
+                                         ctypes.c_float, ptr]
     lib.dpft_msda_mm_tile.argtypes = []
     lib.dpft_msda_mm_tile.restype = i32
     for fn in (lib.dpft_msda_fwd, lib.dpft_msda_bwd, lib.dpft_msda_mm_fwd,
                lib.dpft_msda_mm_bwd, lib.dpft_radar_reduce_ra,
-               lib.dpft_radar_reduce_ea):
+               lib.dpft_radar_reduce_ea, lib.dpft_window_attn_fwd):
         fn.restype = i32
     lib.dpft_cuda_error_string.argtypes = [i32]
     lib.dpft_cuda_error_string.restype = ctypes.c_char_p

@@ -25,8 +25,9 @@ Not ported:
 
 Spans and counters (no counterpart in the JAX package). The program opens
 ``span(name)`` at the boundaries of its layers and calls ``count(name)``
-where the host waits for the card (``dpft.host_syncs``) and at each call of
-a graphed stage (``GRAPH_REPLAYS`` / ``_CAPTURES`` / ``_EAGER`` below).
+where the host waits for the card (``dpft.host_syncs``), at each call of
+a graphed stage (``GRAPH_REPLAYS`` / ``_CAPTURES`` / ``_EAGER`` below) and
+at each Swin block's window attention (``WINDOW_ATTN_FUSED`` / ``_PLAIN``).
 Both record only while a
 ``torch.profiler`` records on the calling thread (``trace`` below, or any
 other profiler window); otherwise a span is one check and a shared
@@ -353,10 +354,15 @@ def span(name: str, id: Any = None):
     records, it is a range ``name`` of the profiler's trace and adds to
     ``span_totals()[name]``; an outermost span carries ``id`` (by default
     its sequence number among the session's spans of that name) into the
-    range's ``args`` of the trace ``trace`` writes. Otherwise it does
-    nothing."""
+    range's ``args`` of the trace ``trace`` writes. A name that starts with
+    ``.`` goes on from the name of the innermost span open on this thread
+    (``.stage1`` under ``a.backbone``: ``a.backbone.stage1``; with none
+    open, the name without its dot). Otherwise it does nothing."""
     if _profiling() or _carried or _session:
         if enabled():
+            if name.startswith("."):
+                stack = getattr(_local, "stack", None)
+                name = stack[-1].name + name if stack else name[1:]
             return _Span(name, id)
     return _OFF
 
@@ -368,13 +374,36 @@ def span(name: str, id: Any = None):
 GRAPH_REPLAYS = "dpft.graph.replays"
 GRAPH_CAPTURES = "dpft.graph.captures"
 GRAPH_EAGER = "dpft.graph.eager"
+# Counters of the Swin blocks' window attention
+# (``models/backbones/swin.py``): calls through the kernel
+# ``dpft::window_attn_fwd`` and calls through the plain operations.
+WINDOW_ATTN_FUSED = "dpft.window_attn.fused"
+WINDOW_ATTN_PLAIN = "dpft.window_attn.plain"
 
 
 def count(name: str, n: int = 1) -> None:
-    """Adds ``n`` to the counter ``name`` while this thread records."""
-    if (_profiling() or _carried) and enabled():
+    """Adds ``n`` to the counter ``name`` while this thread records; inside
+    ``tally()`` to the tally instead."""
+    tallied = getattr(_local, "tally", None)
+    if tallied is not None:
+        tallied[name] = tallied.get(name, 0) + n
+    elif (_profiling() or _carried) and enabled():
         with _lock:
             _counts[name] = _counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[Dict[str, int]]:
+    """Yields a dict that collects every ``count`` this thread makes in the
+    body, whether or not anything records, in place of the counters: what
+    a CUDA graph's capture counted, for each replay to count again
+    (``models/graphs.py``)."""
+    outer = getattr(_local, "tally", None)
+    _local.tally = counted = {}
+    try:
+        yield counted
+    finally:
+        _local.tally = outer
 
 
 def span_totals() -> Dict[str, Dict[str, float]]:

@@ -138,7 +138,8 @@ class _Emulated:
     def replay(self):
         counted = [w.launches for w in graphs._COUNTED]
         fresh = []
-        graphs._flatten(self.run(), fresh)
+        with profiling.tally():   # no Python ran: the graph's own counts
+            graphs._flatten(self.run(), fresh)
         for out, new in zip(self.outputs, fresh):
             out.copy_(new)
         for wrapper, n in zip(graphs._COUNTED, counted):  # no Python ran
