@@ -20,8 +20,10 @@ not 0:
    (1e-4); outputs are finite and shaped; latency (CUDA events) and peak
    memory at B=1 and B=4 in f32 and bf16.
    The same forward's FLOPs (the evaluator's count) give the achieved
-   TFLOP/s of each case. A forward with a swapped MSDA core runs under
-   ``_Eager``, so that no stage replays a graph captured with the kernels.
+   TFLOP/s of each case. A forward or a train step with a swapped MSDA
+   core runs under ``_Eager``, so that no stage replays a graph captured
+   with the kernels or captures one of the swapped core (train steps
+   replay graphs too, models/graphs.py).
 4b. CUDA graphs (``phase_graphs``): the eval forward's stages
    (models/graphs.py) on a copy of the flagship and on
    config/kradar_radar.json at B=1 and B=4 in f32: replays bit-equal to
@@ -534,8 +536,9 @@ def _plain_core(value, shapes, loc, att, backend="gather"):
 
 class _Eager(torch.overrides.TorchFunctionMode):
     """A mode that changes no operation. While it is active every stage of
-    the model runs eagerly (``models/graphs.py``): the reference for a
-    replay, and the way to run a swapped MSDA core, which no graph sees."""
+    the model runs eagerly (``models/graphs.py``), in an eval forward and
+    in a train step: the reference for a replay, and the way to run a
+    swapped MSDA core, which no graph sees."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         return func(*args, **(kwargs or {}))
@@ -1843,7 +1846,8 @@ def phase_train_step_vs_plain(config, model):
     step = _step_loss_and_grads(trainer, model, batch, targets)
     msda_layer.ms_deform_attn_core = _plain_core
     try:
-        ref_step = _step_loss_and_grads(trainer, model, batch, targets)
+        with _Eager():   # a stage's graphs would run the kernels
+            ref_step = _step_loss_and_grads(trainer, model, batch, targets)
     finally:
         msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
     _compare_steps("kernel model", "plain-core model", step, ref_step)
@@ -2065,7 +2069,8 @@ def _dp_parity_step(trainer, net, model, batch, targets):
     whole (``_gather_whole``), BatchNorm running statistics after it)."""
     model.zero_grad(set_to_none=True)
     torch.manual_seed(3)
-    loss = trainer.train_step(net, batch, targets)["loss"]
+    with _Eager():   # the reference, and a swapped core runs in no graph
+        loss = trainer.train_step(net, batch, targets)["loss"]
     grads = {k: _gather_whole(p.grad.detach()).clone()
              for k, p in model.named_parameters() if p.grad is not None}
     model.zero_grad(set_to_none=True)
@@ -3162,7 +3167,8 @@ def _hold_model(tag, label, fconfig, desc):
                              f"{step_launches}, expected {expected}")
     msda_layer.ms_deform_attn_core = _plain_core
     try:
-        ref_step = _step_loss_and_grads(trainer, model, batch, targets)
+        with _Eager():   # a stage's graphs would run the kernels
+            ref_step = _step_loss_and_grads(trainer, model, batch, targets)
     finally:
         msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
     _compare_steps(f"{label} kernel model", "plain-core model", step,
@@ -3238,7 +3244,9 @@ def phase_mm_model(config, model):
     # The same model with the plain hybrid core: what the kernels must equal.
     msda_layer.ms_deform_attn_core = _plain_core
     try:
-        plain_step = _step_loss_and_grads(trainer, mm_model, batch, targets)
+        with _Eager():
+            plain_step = _step_loss_and_grads(trainer, mm_model, batch,
+                                              targets)
     finally:
         msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
     _compare_steps("mm model", "plain mm-core model", step, plain_step)
@@ -3281,8 +3289,10 @@ def phase_trained_steps(config, model, mm_model):
     def steps(core, n=1):
         msda_layer.ms_deform_attn_core = core
         try:
-            return [_step_loss_and_grads(trainer, m, batch, targets)
-                    for m in (mm_model, model) for _ in range(n)]
+            with (contextlib.nullcontext() if core is da.ms_deform_attn_core
+                  else _Eager()):
+                return [_step_loss_and_grads(trainer, m, batch, targets)
+                        for m in (mm_model, model) for _ in range(n)]
         finally:
             msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
 

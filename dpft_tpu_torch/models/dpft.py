@@ -25,20 +25,31 @@ once).
 CUDA graphs (``models/graphs.py``). Each view's backbone, neck and
 embedding and the fuser (its four fusion iterations, their MSDA calls, the
 reductions and the heads) are stages: called as modules, as here, each
-replays one CUDA graph per input layout instead of launching its
-operations one by one. A stage replays when its inputs are on a CUDA
-device, the model is in ``eval()``, grad is off (``inference_mode`` or
-``no_grad``), no ``TorchFunctionMode`` / ``TorchDispatchMode`` is active
-(``FlopCounterMode``) and nothing exports, compiles or traces; from the
-third call of a key on (the first runs eagerly, the second captures). In
-every other case (the CPU, training, ``torch.export``, the FLOP count,
-remat's checkpointed backbones) it runs eagerly as before. Replays read the
-weights in place; moving or rebinding a parameter or buffer drops the
-graphs. The querent launches nothing after its first call (its grid or
-its parameter, broadcast to the batch) and is not a stage. The module tree
-and the state_dict keys are those without graphs, and hooks on the stage
-modules fire around each replay as around an eager call. Spans inside a
-stage (the fuser's) record only when it runs eagerly.
+replays CUDA graphs per input layout instead of launching its operations
+one by one, from the third call of a key on (the first runs eagerly, the
+second captures). A stage replays when its inputs are on a CUDA device,
+no ``TorchFunctionMode`` / ``TorchDispatchMode`` is active
+(``FlopCounterMode``), nothing exports, compiles or traces, and either
+
+- the model is in ``eval()`` and grad is off (``inference_mode`` or
+  ``no_grad``): one graph of the stage's forward; or
+- the model is in ``train()``, grad is on and something of the stage
+  requires grad, outside remat's checkpoint: one graph of the stage's
+  forward and one of its backward, which autograd runs as the stage's
+  node. The capture runs nothing, so BatchNorm's statistics, the dropout
+  masks and the generator's state are the eager step's; each stage's
+  pair keeps its saved activations in a memory pool of its own until its
+  backward replays.
+
+In every other case (the CPU, the backbones under ``computing.remat``,
+FSDP, ``torch.export``, the FLOP count) it runs eagerly as before.
+Replays read the weights in place (an optimizer's update included);
+moving or rebinding a parameter or buffer drops the graphs. The querent
+launches nothing after its first call (its grid or its parameter,
+broadcast to the batch) and is not a stage. The module tree and the
+state_dict keys are those without graphs, and hooks on the stage modules
+fire around each replay as around an eager call. Spans inside a stage
+(the fuser's) record only when it runs eagerly.
 
 Spans (``utils/profiling.py``): ``dpft.forward`` holds ``dpft.frontend``
 (``features``; per view ``v`` in input order

@@ -26,7 +26,8 @@ Not ported:
 Spans and counters (no counterpart in the JAX package). The program opens
 ``span(name)`` at the boundaries of its layers and calls ``count(name)``
 where the host waits for the card (``dpft.host_syncs``), at each call of
-a graphed stage (``GRAPH_REPLAYS`` / ``_CAPTURES`` / ``_EAGER`` below) and
+a graphed stage (``GRAPH_REPLAYS`` / ``_CAPTURES`` / ``_EAGER`` /
+``_BACKWARD_REPLAYS`` below) and
 at each Swin block's window attention (``WINDOW_ATTN_FUSED`` / ``_PLAIN``).
 Both record only while a
 ``torch.profiler`` records on the calling thread (``trace`` below, or any
@@ -368,12 +369,14 @@ def span(name: str, id: Any = None):
 
 
 # Counters of the stages' CUDA graphs (``models/graphs.py``), per stage
-# call of an eval forward on the card (eval mode, grad off, no mode or
-# tracing): one that replayed its graph, one that captured it, and one
-# that ran eagerly (a capturing call included).
+# call of an eval forward or a train step on the card (eval mode with grad
+# off, or train mode with grad on; no mode or tracing): one that replayed
+# its graph, one that captured it, and one that ran eagerly (a capturing
+# call included); and per replay of a train call's backward graph.
 GRAPH_REPLAYS = "dpft.graph.replays"
 GRAPH_CAPTURES = "dpft.graph.captures"
 GRAPH_EAGER = "dpft.graph.eager"
+GRAPH_BACKWARD_REPLAYS = "dpft.graph.backward_replays"
 # Counters of the Swin blocks' window attention
 # (``models/backbones/swin.py``): calls through the kernel
 # ``dpft::window_attn_fwd`` and calls through the plain operations.

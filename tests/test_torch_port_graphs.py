@@ -16,8 +16,16 @@ graphs.py``), on the CPU at the benchmark's tiny size
   benchmark's hooks on the stage modules fire around each replay.
 - The key tells apart batch size, dtype, autocast, inference mode and the
   level shapes; a stage keeps at most ``MAX_GRAPHS`` graphs.
-- The per-layer reader ``dispatch.graph_replay_share.serve`` reads the
-  counters.
+- The per-layer readers ``dispatch.graph_replay_share.serve`` and
+  ``.train`` read the counters.
+- The train step (train mode, grad on): where its path engages and where
+  the stage stays eager; its key; one eager call, one capture, then
+  replays of a forward and a backward graph, whose outputs, gradients,
+  BatchNorm buffers and generator state equal the eager step's over
+  several steps with dropout on; a step the gate skips; a rebound weight;
+  the counters. On the CPU the capture is emulated as above, and what the
+  emulated capture's run changes (BatchNorm buffers, the generator) is put
+  back, since a capture executes nothing.
 """
 
 import contextlib
@@ -45,7 +53,9 @@ from dpft_tpu_torch.models.fusers import IMPFusion
 from dpft_tpu_torch.models.layers.common import init_parameters
 from dpft_tpu_torch.models.necks import FPN
 from dpft_tpu_torch.ops import deform_attn
+from dpft_tpu_torch.training.trainer import CentralizedTrainer
 from dpft_tpu_torch.utils import profiling
+from dpft_tpu_torch.utils.example import example_targets
 from test_full_model_parity import make_batch
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
@@ -128,20 +138,27 @@ def captured(model):
 
 class _Emulated:
     """Stands in for a CUDA graph on the CPU: a replay runs the captured
-    call again on the graph's own inputs and writes its result into the
-    graph's own outputs."""
+    call again on the graph's own inputs, in the grad mode of the capture,
+    and writes its result into the graph's own outputs. A train forward's
+    run keeps what it made for the backward's run (``_record_train``)."""
 
     def __init__(self, run, result):
         self.run, self.outputs = run, []
+        self.grad = torch.is_grad_enabled()
         graphs._flatten(result, self.outputs)
+
+    def pool(self):
+        return ("emulated", id(self))
 
     def replay(self):
         counted = [w.launches for w in graphs._COUNTED]
         fresh = []
-        with profiling.tally():   # no Python ran: the graph's own counts
+        # No Python ran: the graph's own counts.
+        with profiling.tally(), torch.set_grad_enabled(self.grad):
             graphs._flatten(self.run(), fresh)
-        for out, new in zip(self.outputs, fresh):
-            out.copy_(new)
+        with torch.no_grad():
+            for out, new in zip(self.outputs, fresh):
+                out.copy_(new)
         for wrapper, n in zip(graphs._COUNTED, counted):  # no Python ran
             wrapper.launches = n
 
@@ -151,7 +168,7 @@ def cpu_graphs(monkeypatch):
     """Lets the CPU graph, with the capture emulated; counts captures."""
     made = []
 
-    def captured_run(run):
+    def captured_run(run, pool=None):
         result = run()
         made.append(_Emulated(run, result))
         return made[-1], result
@@ -160,9 +177,24 @@ def cpu_graphs(monkeypatch):
         out = forward(module, *args, **kwargs)
         return out, graphs._record(forward, module, spec, tensors)
 
+    def capture_train(forward, module, args, kwargs, spec, tensors, params):
+        out = forward(module, *args, **kwargs)
+        # A capture executes nothing: put back what the emulation's runs
+        # change.
+        buffers = [(b, b.clone()) for b in module.buffers()]
+        rng = torch.get_rng_state()
+        entry = graphs._record_train(forward, module, spec, tensors, params)
+        torch.set_rng_state(rng)
+        with torch.no_grad(), graphs._unsafe_preserve_version_counter(
+                tuple(b for b, _ in buffers)):
+            for b, value in buffers:
+                b.copy_(value)
+        return out, entry
+
     monkeypatch.setattr(graphs, "GRAPH_DEVICES", ("cuda", "cpu"))
     monkeypatch.setattr(graphs, "_captured", captured_run)
     monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(graphs, "_capture_train", capture_train)
     return made
 
 
@@ -543,25 +575,305 @@ def test_level_size_tables_stay_where_a_graph_reads_them(config,
 
 
 def test_every_graph_captures_into_one_pool(monkeypatch):
-    """The graphs share one memory pool: every capture names it."""
+    """The eval graphs share one memory pool per device, which an empty
+    graph that the process keeps holds: every capture names it. A train
+    graph's forward takes a pool of its own (None), and its backward that
+    pool."""
     pools = []
+    handles = iter(range(10))
 
     class Graph:
         def capture_begin(self, pool=None, capture_error_mode=None):
+            self.id = (next(handles), 0) if pool is None else pool
             pools.append(pool)
 
         def capture_end(self):
             pass
 
-    handles = iter(range(10))
+        def pool(self):
+            return self.id
+
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
-                        lambda: (next(handles), 0))
-    monkeypatch.setattr(graphs, "_pool", None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(graphs, "_pools", {})
+    monkeypatch.setattr(graphs, "_keepers", [])
     for n in range(3):
         graph, result = graphs._captured(lambda: n)
         assert isinstance(graph, Graph) and result == n
-    assert pools == [(0, 0)] * 3
+    assert pools == [None] + [(0, 0)] * 3    # the keeper, then the graphs
+    assert [k.pool() for k in graphs._keepers] == [(0, 0)]
+    graphs._captured(lambda: 0, None)
+    graphs._captured(lambda: 0, (7, 0))
+    assert pools[4:] == [None, (7, 0)]
+
+
+# -- the train step ---------------------------------------------------------
+
+def trained(model, inputs, backward=True):
+    """One train-mode forward of ``model`` and, with ``backward``, the
+    backward of the sum of its outputs; returns the outputs, detached."""
+    out = model.train()(inputs)
+    if backward:
+        sum(v.float().sum() for v in out.values()).backward()
+    return {k: v.detach() for k, v in out.items()}
+
+
+def train_graphs(model):
+    return sum(isinstance(g, graphs._TrainGraph) for s in states(model)
+               for g in s.graphs.values())
+
+
+def grads(model):
+    return {k: None if p.grad is None else p.grad.clone()
+            for k, p in model.named_parameters()}
+
+
+def same_grads(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert (a[k] is None) == (b[k] is None), k
+        if a[k] is not None:
+            assert torch.equal(a[k], b[k]), k
+
+
+def same_state(a, b):
+    same(dict(a.named_parameters()), dict(b.named_parameters()))
+    same(dict(a.named_buffers()), dict(b.named_buffers()))
+
+
+class _PassThrough(torch.overrides.TorchFunctionMode):
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+def _fsdp(module):
+    """``module`` as FSDP2's ``fully_shard`` leaves its class."""
+    from torch.distributed.fsdp import FSDPModule
+    cls = type(module)
+    module.__class__ = type(f"FSDP{cls.__name__}", (FSDPModule, cls), {})
+
+
+@pytest.mark.parametrize("case", ["eval_grad", "no_grad", "frozen", "remat",
+                                  "fsdp", "group", "mode", "hook"])
+def test_where_the_train_path_engages(config, cpu_graphs, monkeypatch,
+                                      case):
+    """Train mode with grad on graphs every stage but where the call
+    observes what a graph would hide or break: eval mode, no grad, nothing
+    that requires grad, remat's checkpoint (the backbones), an FSDP
+    module, a process group (data parallelism), a mode, a hook inside the
+    stage."""
+    model, inputs = build(config), batch()
+    if case == "frozen":
+        model.requires_grad_(False)
+    elif case == "remat":
+        model.remat = True
+    elif case == "fsdp":
+        _fsdp(model.necks["radar_bev"].fpn.layer_blocks[0])
+    elif case == "group":
+        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    elif case == "hook":
+        model.backbones["radar_front"].body.conv1.register_forward_hook(
+            lambda m, a, out: None)
+    for _ in range(3):
+        torch.manual_seed(0)
+        if case == "eval_grad":
+            model.eval()(inputs)
+        elif case == "no_grad":
+            with torch.no_grad():
+                trained(model, inputs, backward=False)
+        elif case == "frozen":
+            trained(model, inputs, backward=False)
+        elif case == "mode":
+            with _PassThrough():
+                trained(model, inputs)
+        else:
+            trained(model, inputs)
+        model.zero_grad(set_to_none=True)
+    want = {"remat": STAGES - 3, "fsdp": STAGES - 1,
+            "hook": STAGES - 1}.get(case, 0)
+    assert train_graphs(model) == want
+    assert captured(model) == want
+
+
+def test_a_train_key_differs_from_an_eval_key(config, cpu_graphs):
+    model, inputs = build(config), batch()
+    for _ in range(3):
+        trained(model, inputs)
+    want = plain(model.eval(), inputs)
+    with torch.inference_mode():
+        for _ in range(3):
+            same(model(inputs), want)
+    for state in states(model):
+        kinds = sorted(type(g).__name__ for g in state.graphs.values())
+        assert kinds == ["_Graph", "_TrainGraph"]
+        (train_key,) = [k for k, g in state.graphs.items()
+                        if isinstance(g, graphs._TrainGraph)]
+        eval_key = next(k for k in state.graphs if k != train_key)
+        assert train_key[0][:3] == eval_key[:3]    # the call's structure
+        assert train_key[0] != eval_key            # no inference mode
+
+
+def test_train_calls_eager_then_capture_then_replay(config, cpu_graphs):
+    from torch.profiler import ProfilerActivity, profile
+
+    model, inputs = build(config), batch()
+    trained(model, inputs)
+    assert captured(model) == 0 and not cpu_graphs
+    trained(model, inputs)
+    assert train_graphs(model) == STAGES
+    assert len(cpu_graphs) == 2 * STAGES          # a forward, a backward
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            trained(model, inputs)
+    assert graph_counters() == {profiling.GRAPH_REPLAYS: 2 * STAGES,
+                                profiling.GRAPH_BACKWARD_REPLAYS:
+                                    2 * STAGES}
+    assert len(cpu_graphs) == 2 * STAGES
+
+
+def test_replayed_train_steps_equal_the_eager_steps(config, cpu_graphs):
+    """Five steps of the train CLI's step and AdamW, dropout on, from the
+    same weights and generator: from the third on the stages replay.
+    Losses, outputs, every gradient, every parameter and buffer and the
+    generator state after each step equal the eager model's. A forward
+    with no backward (the gate's skipped step) between them changes
+    nothing."""
+    trainer = CentralizedTrainer.from_config(config)
+    eager, graphed = build(config), build(config)
+    optimizers = [trainer.optimizer_factory(m.parameters())
+                  for m in (eager, graphed)]
+    for step in range(5):
+        inputs = batch(seed=step % 2)
+        targets = to_device(example_targets(config, B=2, seed=step), CPU)
+        results = []
+        for model, optimizer in zip((eager, graphed), optimizers):
+            torch.manual_seed(step)
+            with unwrapped() if model is eager else contextlib.nullcontext():
+                if step == 3:   # no backward
+                    out = model.train()(inputs)
+                    scalars = {k: v.detach() for k, v in out.items()}
+                    del out
+                else:
+                    scalars = trainer.train_step(model, inputs, targets)
+            results.append((scalars, grads(model), torch.get_rng_state()))
+            if step != 3:
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+        (want, want_grads, want_rng), (got, got_grads, got_rng) = results
+        if step == 3:
+            same(got, want)
+        else:
+            assert got == want
+        same_grads(got_grads, want_grads)
+        assert torch.equal(got_rng, want_rng)
+        same_state(graphed, eager)
+    assert train_graphs(graphed) == STAGES
+    assert len(cpu_graphs) == 2 * STAGES
+
+
+def test_a_held_replay_makes_the_next_call_eager(config, cpu_graphs):
+    """While autograd may still run the backward of a replay, the next
+    call of its key runs eagerly (a replay would overwrite the activations
+    that backward reads); both backwards then give the eager gradients."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eager, graphed = build(config), build(config)
+    inputs = [batch(seed=0), batch(seed=1)]
+    for _ in range(2):
+        trained(graphed, inputs[0])
+    graphed.zero_grad(set_to_none=True)
+    results = []
+    for model in (eager, graphed):
+        torch.manual_seed(5)
+        with unwrapped() if model is eager else contextlib.nullcontext():
+            with profile(activities=[ProfilerActivity.CPU]):
+                outs = [model.train()(x) for x in inputs]
+                sum(v.float().sum() for out in outs
+                    for v in out.values()).backward()
+        results.append((graph_counters(), grads(model)))
+    assert results[1][0] == {profiling.GRAPH_REPLAYS: STAGES,
+                             profiling.GRAPH_EAGER: STAGES,
+                             profiling.GRAPH_BACKWARD_REPLAYS: STAGES}
+    same_grads(results[1][1], results[0][1])
+
+
+def test_rebinding_a_weight_drops_both_graphs(config, cpu_graphs):
+    model, inputs = build(config), batch()
+    for _ in range(2):
+        trained(model, inputs)
+    assert train_graphs(model) == STAGES
+    conv = model.necks["radar_bev"].fpn.layer_blocks[0][0]
+    conv.weight = nn.Parameter(conv.weight.detach() * 1.01)
+    model.zero_grad(set_to_none=True)
+    trained(model, inputs)            # that stage eager: its graphs dropped
+    assert train_graphs(model) == STAGES - 1
+    assert conv.weight.grad is not None
+    want = conv.weight.grad.clone()
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        torch.manual_seed(0)
+        trained(model, inputs)        # captures, then replays
+    assert train_graphs(model) == STAGES
+    assert len(cpu_graphs) == 2 * (STAGES + 1)
+    assert conv.weight.grad.shape == want.shape
+
+
+def test_train_replays_count_both_graphs_launches(cpu_graphs):
+    class Sampled(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            deform_attn.msda_fwd.launches += 2
+            return x * 2
+
+        @staticmethod
+        def backward(ctx, g):
+            deform_attn.msda_bwd.launches += 3
+            return g * 2
+
+    class Launching(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = nn.Parameter(torch.ones(3))
+
+        @graphs.stage
+        def forward(self, x):
+            return {"y": Sampled.apply(x * self.w)}
+
+    module, x = Launching().train(), torch.ones(3)
+    before = (deform_attn.msda_fwd.launches, deform_attn.msda_bwd.launches)
+    for _ in range(5):
+        module(x)["y"].sum().backward()
+    # 5 calls: eager, warm-up (the captures count none), three replays.
+    assert (deform_attn.msda_fwd.launches - before[0],
+            deform_attn.msda_bwd.launches - before[1]) == (10, 15)
+    assert torch.equal(module.w.grad, torch.full((3,), 10.0))
+
+
+def test_a_failed_train_capture_leaves_the_key_eager(config, cpu_graphs,
+                                                     monkeypatch):
+    emulated = graphs._captured
+
+    def fail_backward(run, pool=graphs._SHARED):
+        if pool is not None and pool is not graphs._SHARED:
+            # a backward's capture, into its forward's pool
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        return emulated(run, pool)
+
+    monkeypatch.setattr(graphs, "_captured", fail_backward)
+    eager, model = build(config), build(config)
+    inputs = batch()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            for m in (eager, model):
+                torch.manual_seed(1)
+                with unwrapped() if m is eager else contextlib.nullcontext():
+                    trained(m, inputs)
+            same_grads(grads(model), grads(eager))
+    assert len([w for w in caught if "no CUDA graph of the train step"
+                in str(w.message)]) == STAGES
+    assert captured(model) == 0
 
 
 # -- the benchmark's reader ------------------------------------------------
@@ -579,5 +891,25 @@ def test_replay_share_reader(monkeypatch):
                             profiling.GRAPH_EAGER: 10}, 75.0),
                           ({profiling.GRAPH_EAGER: 8,
                             profiling.GRAPH_CAPTURES: 8}, 0.0)):
+        monkeypatch.setattr(profiling, "counters", lambda c=counted: dict(c))
+        assert reader.read(None) == want
+
+
+def test_train_replay_share_reader(monkeypatch):
+    """``dispatch.graph_replay_share.train`` is the serve reader over the
+    train window: forward replays over stage calls; backward replays do
+    not count."""
+    sys.path.insert(0, BENCH)
+    try:
+        from harness import spec
+        reader = spec.reader("dispatch.graph_replay_share.train")
+    finally:
+        sys.path.remove(BENCH)
+    for counted, want in (({}, None),
+                          ({profiling.GRAPH_REPLAYS: 20,
+                            profiling.GRAPH_BACKWARD_REPLAYS: 20}, 100.0),
+                          ({profiling.GRAPH_REPLAYS: 15,
+                            profiling.GRAPH_EAGER: 5,
+                            profiling.GRAPH_BACKWARD_REPLAYS: 15}, 75.0)):
         monkeypatch.setattr(profiling, "counters", lambda c=counted: dict(c))
         assert reader.read(None) == want
