@@ -273,27 +273,7 @@ not 0:
    10 log10, taken in float64 from the cube, lie within ``TIE_ULPS``
    float32 ulps; each such gap is printed), ms per cube on the host with
    its CPU's name.
-22. Bench (last, ``phase_bench``): ``python -m dpft_tpu_torch.bench``
-   through its real entry, each run in a fresh process with BENCH_REPS 1
-   and BENCH_WARMUP 1, all at once (the entry's timings are not read
-   here: the benchmark under h100_bench/ measures): the default run
-   (inference, B=4, bfloat16), train at B=4 in float32 with
-   BENCH_FLOPS=1, prepare on the default device (the four frame ids of
-   tests/kradar_fixture.py at K-Radar's shapes; without the NumPy
-   baseline), inference at B=1 in float32 as the cell ``1:f32`` of
-   ``python -m dpft_tpu_torch.bench_scaling`` (which passes the bench's
-   stderr on), and BENCH_HOIST=1. Each run exits 0 with a last
-   line of exactly the port's keys for its mode (``port_bench_keys``: the
-   root bench.py's, read from its source with ``ast``, with the port's
-   changes) naming this card and its power limit; the inference FLOPs
-   equal the serve path's count per B=1 forward times B, the train step's
-   lie within 2-4 times the forward's (the ratio printed); prepare reports
-   every frame of its tree; TF32 is off at the end of every run and the
-   kernels it launched (its ``bench:`` line on stderr) are its mode's;
-   BENCH_HOIST=1 exits 1 with an error line. Each run's last line is
-   printed whole.
-
-23. Overfit (``phase_overfit``, before phase 15): tests/test_overfit_metrics.
+22. Overfit (``phase_overfit``, before phase 15): tests/test_overfit_metrics.
    py's recipe at the small config, from the port's own init at seeds 0-3
    (``OVERFIT_RUNS``; two classes and ``"mm"`` at seed 0). The fixture's
    raw tree (``write_fixture_tree``: tests/kradar_fixture.py's files and
@@ -317,7 +297,7 @@ not 0:
    (overfit_flagship); the loss finite and its last epoch below half its
    first; the small recipe's floor readings printed, not held.
 
-24. Window attention (``phase_window_attn``, before phase 16):
+23. Window attention (``phase_window_attn``, before phase 16):
    ``window_attn_fwd`` against ``window_attention_plain`` on the card at
    the four stage shapes of the Swin-B camera at 512x910 (B=1), unshifted
    and shifted by 3: float32 within 1e-5 of the plain output's largest
@@ -385,8 +365,6 @@ B_TRAIN = 4  # train.batch_size of config/kradar.json
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 REPS = 20  # timed forwards of the evaluator's latency phase
-KERNELS = ("msda_fwd", "msda_bwd", "msda_mm_fwd", "msda_mm_bwd",
-           "radar_reduce_ra", "radar_reduce_ea", "window_attn_fwd")
 # Matmul-form border cases (BH, h, w, D, S, placement of the points): odd
 # head dims, points on integer coordinates and at +-1e9; and what the 16 x 16
 # tiles of csrc/msda_mm.cu make hard: a level smaller than one tile, h and w
@@ -465,21 +443,32 @@ def _bound(n_bytes, flops):
             else (by_ops, "operations"))
 
 
-def _kernel_wrappers():
-    from dpft_tpu_torch.ops import deform_attn as da
-    from dpft_tpu_torch.ops import radar_reduce as rr
-    from dpft_tpu_torch.ops import window_attn as wa
+def _counted():
+    """``ops/kernels.py``, whose registry (``COUNTED``) then holds every
+    launch-counted kernel wrapper: every module of ``dpft_tpu_torch.ops``
+    is imported first."""
+    import importlib
+    import pkgutil
 
-    return {**da.LAUNCH_COUNTED, **rr.LAUNCH_COUNTED, **wa.LAUNCH_COUNTED}
+    from dpft_tpu_torch import ops
+    from dpft_tpu_torch.ops import kernels
+
+    for module in pkgutil.iter_modules(ops.__path__):
+        importlib.import_module(f"{ops.__name__}.{module.name}")
+    return kernels
+
+
+def _no_launches():
+    """0 for every launch-counted kernel, by name."""
+    return dict.fromkeys(_counted().COUNTED, 0)
 
 
 def _reset_launches():
-    for wrapper in _kernel_wrappers().values():
-        wrapper.launches = 0
+    _counted().reset_launches()
 
 
 def _read_launches():
-    return {name: w.launches for name, w in _kernel_wrappers().items()}
+    return _counted().launches()
 
 
 def _expected_launches(config, view_shapes, forwards, steps):
@@ -504,7 +493,7 @@ def _expected_launches(config, view_shapes, forwards, steps):
         mm, gather = 0, len(view_shapes)
     per = {"msda_fwd": (gather, forwards), "msda_bwd": (gather, steps),
            "msda_mm_fwd": (mm, forwards), "msda_mm_bwd": (mm, steps)}
-    expected = dict.fromkeys(KERNELS, 0)
+    expected = _no_launches()
     expected.update({k: fuser["i_iter"] * n * times
                      for k, (n, times) in per.items()})
     expected["window_attn_fwd"] = _swin_blocks(config) * (forwards - steps)
@@ -1485,17 +1474,17 @@ def phase_serve(config, model, view_shapes, label="serve"):
 _LOAD_AND_RUN = """
 import json, sys, time
 import torch
-import dpft_tpu_torch.ops.deform_attn as da
+import dpft_tpu_torch.ops.deform_attn  # the dpft:: operators and wrappers
+from dpft_tpu_torch.ops import kernels
 
 # Full float32, as the CLIs run (utils/device.py:use_full_float32): the
 # flags belong to the process, not to the program.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 tmp, names, reps = sys.argv[1], sys.argv[2].split(","), int(sys.argv[3])
-wrappers = da.LAUNCH_COUNTED
+wrappers = kernels.COUNTED
 batches = torch.load(tmp + "/batches.pt")
-for w in wrappers.values():
-    w.launches = 0
+kernels.reset_launches()
 report, outputs = {}, {}
 for name in names:
     t0 = time.perf_counter()
@@ -1669,7 +1658,7 @@ def phase_export(config, model, view_shapes, label="export",
               f"dpft.{op} nodes, launches per forward "
               f"{run['per_forward'][0]}; weights and constants that share a "
               f"storage: {shared[name] or 'none'}, ok")
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = _no_launches()
     launches.update(report["launches"])
     expected = _expected_launches(config, view_shapes, forwards, 0)
     if launches != expected:
@@ -3630,7 +3619,7 @@ def phase_prepare(config_path, config, model, launch_paths):
         launches = _read_launches()
         _assert_full_float32("prepare.main")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        expected = dict.fromkeys(KERNELS, 0)
+        expected = _no_launches()
         expected.update(radar_reduce_ra=n_frames, radar_reduce_ea=n_frames)
         if launches != expected:
             raise AssertionError(f"the prepare path launched {launches}, "
@@ -5074,7 +5063,7 @@ def _overfit_run(config, processed, seed, kernels=True):
     shapes = dict(zip(model.inputs, (s for _, s in views)))
     steps = len(history) * len(loader)
     expected = (_expected_launches(config, shapes, steps, steps) if kernels
-                else dict.fromkeys(KERNELS, 0))
+                else _no_launches())
     if launches != expected:
         raise AssertionError(f"{len(history)} epochs launched {launches}, "
                              f"expected {expected}")
@@ -5142,9 +5131,9 @@ def phase_overfit():
     ``export.main`` on a run's one checkpoint. Returns the launches of
     the paths overfit_prepare, overfit and overfit_mm."""
     root = tempfile.mkdtemp(prefix="dpft_overfit_")
-    paths = {"overfit_prepare": dict.fromkeys(KERNELS, 0),
-             "overfit": dict.fromkeys(KERNELS, 0),
-             "overfit_mm": dict.fromkeys(KERNELS, 0)}
+    paths = {"overfit_prepare": _no_launches(),
+             "overfit": _no_launches(),
+             "overfit_mm": _no_launches()}
     try:
         trees = {}
         for two_class in (False, True):
@@ -5156,7 +5145,7 @@ def phase_overfit():
             trees[two_class], launches, worst = _prepare_fixture(
                 tree, two_class, cfg)
             n = sum(map(len, FIXTURE_IDS.values()))
-            want = dict.fromkeys(KERNELS, 0)
+            want = _no_launches()
             want.update(radar_reduce_ra=n, radar_reduce_ea=n)
             if launches != want:
                 raise AssertionError(f"fixture prepare launched {launches}, "
@@ -5292,182 +5281,6 @@ def phase_overfit_flagship(dst, config):
     return launches
 
 
-# The port's bench line against the root bench.py's, mode by mode: these
-# keys go, ``mfu`` and ``peak_tflops`` take the place of
-# ``mfu_vs_bf16_peak``, and the card and its activity come in.
-BENCH_DROPPED = {"readback_rtt_ms", "hbm_static_gb", "hbm_static",
-                 "mfu_vs_bf16_peak"}
-BENCH_ADDED = {"device", "power_limit_w", "launches_per_call",
-               "device_busy_share", "device_ms_per_call"}
-# phase_bench's runs of ``python -m dpft_tpu_torch.bench`` (label, env), and
-# the cell of ``bench_scaling`` that is its inference run at B=1 in float32.
-BENCH_RUNS = (
-    ("inference B=4 bf16 (the default)", {}),
-    ("train B=4 f32", {"BENCH_MODE": "train", "BENCH_DTYPE": "float32",
-                       "BENCH_FLOPS": "1"}),
-    ("prepare", {"BENCH_MODE": "prepare", "BENCH_PREPARE_BASELINE": "0"}))
-BENCH_SCALING_CELL = ("inference", "1:f32")
-
-
-def jax_bench_keys(mode):
-    """The keys of the root bench.py's last line in ``mode``, read from its
-    source with ``ast`` (it imports JAX): the dict literals returned or
-    assigned to ``result`` in ``bench_<mode>`` and the keys assigned to
-    ``result[...]``."""
-    import ast
-
-    with open(os.path.join(ROOT, "bench.py")) as f:
-        tree = ast.parse(f.read())
-    fn = next(node for node in tree.body if isinstance(node, ast.FunctionDef)
-              and node.name == f"bench_{mode}")
-    keys = set()
-    for node in ast.walk(fn):
-        if isinstance(node, ast.Assign):
-            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
-            keys |= {t.slice.value for t in node.targets
-                     if isinstance(t, ast.Subscript)
-                     and isinstance(t.value, ast.Name)
-                     and t.value.id == "result"
-                     and isinstance(t.slice, ast.Constant)}
-            if "result" not in names:
-                continue
-        elif not isinstance(node, ast.Return):
-            continue
-        if isinstance(node.value, ast.Dict):
-            keys |= {k.value for k in node.value.keys
-                     if isinstance(k, ast.Constant)}
-    return keys
-
-
-def port_bench_keys(mode):
-    """The keys the port's bench prints in ``mode``."""
-    jax = jax_bench_keys(mode)
-    keys = (jax - BENCH_DROPPED) | BENCH_ADDED
-    if "mfu_vs_bf16_peak" in jax:
-        keys |= {"mfu", "peak_tflops"}
-    return keys
-
-
-def _bench_process(args, env, timeout=600):
-    """(returncode, last stdout line parsed (None if it is no JSON), the
-    ``bench:`` line of stderr parsed (None if none), seconds) of a fresh
-    process from the repository's root."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *args], cwd=ROOT,
-                          env=dict(os.environ, **env), capture_output=True,
-                          text=True, timeout=timeout)
-    seconds = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    try:
-        last = json.loads(lines[-1])
-    except (IndexError, ValueError):
-        last = None
-    diag = [json.loads(line[len("bench: "):])
-            for line in proc.stderr.splitlines() if line.startswith("bench: ")]
-    if proc.returncode and last is None:
-        print(proc.stderr[-3000:], file=sys.stderr)
-    return proc.returncode, last, (diag or [None])[-1], seconds
-
-
-def _check_bench_run(label, mode, run, card, limit_w, flops):
-    """Holds one bench run, ``run`` = (returncode, last line, ``bench:``
-    line, seconds), to ``phase_bench``'s checks; returns its last line."""
-    from dpft_tpu_torch.bench import PREPARE_FRAMES
-
-    rc, result, diag, seconds = run
-    if rc != 0 or result is None or diag is None:
-        raise AssertionError(f"bench {label}: exit {rc}, last line {result}")
-    keys = port_bench_keys(mode)
-    if set(result) != keys:
-        raise AssertionError(f"bench {label}: keys {sorted(result)}; "
-                             f"expected {sorted(keys)}")
-    if result["device"] != card or result["power_limit_w"] != limit_w:
-        raise AssertionError(f"bench {label}: device {result['device']!r} "
-                             f"at {result['power_limit_w']} W, the card is "
-                             f"{card!r} at {limit_w} W")
-    kernels = {"inference": {"msda_fwd"}, "train": {"msda_fwd", "msda_bwd"},
-               "prepare": {"radar_reduce_ra", "radar_reduce_ea"}}[mode]
-    launched = {k for k, n in diag["kernel_launches"].items() if n}
-    if launched != kernels or any(diag["tf32"].values()):
-        raise AssertionError(f"bench {label}: {diag}")
-    note = ""
-    if mode == "inference" and \
-            result["forward_flops"] != flops * result["batch"]:
-        raise AssertionError(f"bench {label}: forward_flops "
-                             f"{result['forward_flops']}, the serve path's "
-                             f"{flops} x {result['batch']}")
-    if mode == "train":
-        ratio = result["grad_step_flops"] / (flops * result["batch"])
-        if not 2 <= ratio <= 4:
-            raise AssertionError(f"bench {label}: grad_step_flops "
-                                 f"{result['grad_step_flops']}, {ratio} "
-                                 "times the forward's")
-        note = f"; grad_step_flops / forward_flops = {ratio:.4f}"
-    if mode == "prepare" and result["frames"] != len(PREPARE_FRAMES):
-        raise AssertionError(f"bench {label}: {result['frames']} frames of "
-                             f"{len(PREPARE_FRAMES)}")
-    print(f"[bench] {label}: exit 0 in {seconds:.1f} s; kernel launches "
-          f"{diag['kernel_launches']}; TF32 off{note}")
-    print(f"[bench]   {json.dumps(result)}")
-    return result
-
-
-def phase_bench(flops):
-    """``python -m dpft_tpu_torch.bench`` through its real entry, in fresh
-    processes that run at once with one repetition after one warm-up
-    (``BENCH_RUNS``, ``BENCH_SCALING_CELL`` through ``python -m
-    dpft_tpu_torch.bench_scaling``, and ``BENCH_HOIST=1``). Each run must
-    exit 0 with a last line of exactly the port's keys for its mode
-    (``port_bench_keys``) naming this card and its power limit; the
-    inference FLOPs must be ``flops`` (the serve path's count per B=1
-    forward) times B, the train step's between 2 and 4 times the forward's
-    at its B; prepare must report every frame of its tree; TF32 must be off
-    at the end of every run; the kernels launched (the ``bench:`` line of
-    stderr) must be those of the mode. ``BENCH_HOIST=1`` must exit 1 with
-    an error line. Returns every run's last line by label."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    card = torch.cuda.get_device_name(0)
-    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
-                "--format=csv,noheader"]).splitlines()[0]
-    limit_w = float(smi.rsplit(",", 1)[1].split()[0])
-    base = {"BENCH_REPS": "1", "BENCH_WARMUP": "1"}
-    module = ("-m", "dpft_tpu_torch.bench")
-    mode, cell = BENCH_SCALING_CELL
-    scaling = f"bench_scaling {mode} {cell}"
-    with tempfile.TemporaryDirectory() as tmp, \
-            ThreadPoolExecutor(len(BENCH_RUNS) + 2) as pool:
-        out = os.path.join(tmp, "scaling.jsonl")
-        runs = {label: pool.submit(_bench_process, module, {**base, **env})
-                for label, env in BENCH_RUNS}
-        runs[scaling] = pool.submit(
-            _bench_process,
-            ("-m", "dpft_tpu_torch.bench_scaling", out, mode, cell), base)
-        hoist = pool.submit(_bench_process, module, {"BENCH_HOIST": "1"})
-        runs = {label: run.result() for label, run in runs.items()}
-        with open(out) as f:
-            rows = [json.loads(line) for line in f]
-
-    results = {}
-    for label, env in BENCH_RUNS:
-        results[label] = _check_bench_run(
-            label, env.get("BENCH_MODE", "inference"), runs[label], card,
-            limit_w, flops)
-    rc, _, diag, seconds = runs[scaling]
-    if len(rows) != 1 or "error" in rows[0]:
-        raise AssertionError(f"{scaling}: exit {rc}, {rows}")
-    row = {k: v for k, v in rows[0].items() if k not in ("mode", "wall_sec")}
-    results[scaling] = _check_bench_run(scaling, mode,
-                                        (rc, row, diag, seconds), card,
-                                        limit_w, flops)
-
-    rc, result, _, seconds = hoist.result()
-    if rc != 1 or "BENCH_HOIST" not in (result or {}).get("error", ""):
-        raise AssertionError(f"BENCH_HOIST=1: exit {rc}, {result}")
-    print(f"[bench] BENCH_HOIST=1: exit 1 in {seconds:.1f} s, {result}")
-    return results
-
-
 def _assert_full_float32(after):
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.backends.cudnn.allow_tf32:
@@ -5585,7 +5398,6 @@ def main():
     paths.update(_timed("overfit", phase_overfit))
     paths["prepare"] = _timed("prepare and reference_ckpt", phase_prepare,
                               config_path, config, model, paths)
-    _timed("bench", phase_bench, flops)
     # `launches` is the count on the kernel's own main path.
     reports = [(fwd_report, "train"), (bwd_report, "train"),
                (mm_fwd_report, "train_mm"), (mm_bwd_report, "train_mm"),

@@ -69,6 +69,8 @@ DEFAULT_TIME_ZONE = {"day": 0, "night": 1}
 
 STEREO_BASELINE_M = 0.12  # per camera spec sheet (reference processor.py:373)
 
+PREPARE_DEVICES = ("default", "cpu", "native")
+
 
 class KRadarProcessor:
     def __init__(self,
@@ -94,16 +96,21 @@ class KRadarProcessor:
         self.time_zone = dict(time_zone) if time_zone else dict(DEFAULT_TIME_ZONE)
         self.workers = max(1, workers)
         self.dtype = np.dtype(dtype)
-        self.use_device = use_device
-        # 'default' runs the reduction on `device` (the card unless the
-        # caller asks for 'cpu'); 'cpu' pins it to the plain version on the
-        # host whatever `device` says; 'native' runs the host SIMD kernel
-        # (ops/radar_reduce_native.py) and needs no device.
-        self.prepare_device = prepare_device
-        # Resolved here so that asking for a card where there is none fails
-        # before any file is read.
+        # The radar reduction's route, settled here so that an unknown
+        # value, or a card asked for where there is none, fails before any
+        # file is read. 'native' (the host SIMD kernel) whatever the other
+        # keys say; else 'numpy' without ``use_device``; else 'device':
+        # ops/radar_reduce.py on ``device``, or on the CPU for 'cpu'.
+        if prepare_device not in PREPARE_DEVICES:
+            raise ValueError(f"prepare_device {prepare_device!r}: one of "
+                             f"{', '.join(map(repr, PREPARE_DEVICES))}")
         self.device = None
-        if use_device and prepare_device != "native":
+        if prepare_device == "native":
+            self.route = "native"
+        elif not use_device:
+            self.route = "numpy"
+        else:
+            self.route = "device"
             self.device = resolve_device(
                 "cpu" if prepare_device == "cpu" else device)
 
@@ -284,8 +291,8 @@ class KRadarProcessor:
             return tesseract.astype(self.dtype) if cast else tesseract
 
     def get_radar_data(self, filename: str):
-        """(ra, ea) dual-plane features, reduced on ``self.device``; with
-        `use_device=False` by the NumPy path.
+        """(ra, ea) dual-plane features, reduced by ``self.route``: on
+        ``self.device``, by the NumPy path or by the host SIMD kernel.
 
         On the device path the cube goes to the device as ``loadmat``
         returned it, float64 and doppler-fastest, and ``reduce_tesseract``
@@ -294,12 +301,12 @@ class KRadarProcessor:
         float64 and one float32 cube on the device for the length of the
         call. ``prepare_device: "native"`` reduces the cube, cast to
         float32 on the host, with the host SIMD kernel."""
-        if self.prepare_device == "native":
+        if self.route == "native":
             ra, ea = reduce_tesseract_native(self.get_radar_tesseract(
                 filename).astype(np.float32, copy=False))
             return (ra.astype(self.dtype, copy=False),
                     ea.astype(self.dtype, copy=False))
-        if not self.use_device:
+        if self.route == "numpy":
             ra, ea = reduce_tesseract_np(self.get_radar_tesseract(filename))
             return ra.astype(self.dtype), ea.astype(self.dtype)
         tesseract = self.get_radar_tesseract(filename, cast=False)

@@ -85,21 +85,21 @@ was rebound or moved (``.to()``, ``load_state_dict(assign=True)``, a new
 ``Parameter``, a new submodule) its graphs are dropped and its keys start
 over with an eager call.
 
-The launch counters of the hand-written kernels' wrappers
-(``ops/deform_attn.py``: ``msda_fwd.launches``, ``msda_bwd.launches`` ...,
-``ops/window_attn.py``: ``window_attn_fwd.launches``) count a replay's
-launches of those kernels, forward or backward, as an eager call counts
-them; a capture itself launches nothing and counts nothing. So do the
-program's counters that the stage's own code advances
-(``utils/profiling.py:count``, such as ``dpft.window_attn.fused``): what
-a forward's capture counted, in a tally, each replay counts again, while
-a profiler records. The program's counters ``dpft.graph.replays``,
-``dpft.graph.captures`` and ``dpft.graph.eager`` count, while a profiler
-records, the stage calls that the first three conditions above let graph:
-those that replay, those that capture, and those that run eagerly (a
-capturing call among them: it runs the warm-up);
-``dpft.graph.backward_replays`` counts the backward graphs' replays. One
-thread at a time calls the models of a device, on one stream.
+The launch counters of the hand-written kernels' wrappers (the registry
+``ops/kernels.py:COUNTED``: ``msda_fwd.launches``,
+``window_attn_fwd.launches`` ...) count a replay's launches of those
+kernels, forward or backward, as an eager call counts them: a capture
+itself launches nothing and counts nothing, and keeps the launches of the
+wrappers whose count it moved, which each replay adds. So do the program's
+counters that the stage's own code advances (``utils/profiling.py:count``,
+such as ``dpft.window_attn.fused``): what a forward's capture counted, in
+a tally, each replay counts again, while a profiler records. The program's
+counters ``dpft.graph.replays``, ``dpft.graph.captures`` and
+``dpft.graph.eager`` count, while a profiler records, the stage calls that
+the first three conditions above let graph: those that replay, those that
+capture, and those that run eagerly (a capturing call among them: it runs
+the warm-up); ``dpft.graph.backward_replays`` counts the backward graphs'
+replays. One thread at a time calls the models of a device, on one stream.
 """
 
 from __future__ import annotations
@@ -119,7 +119,7 @@ from torch.autograd.function import once_differentiable
 from torch.autograd.grad_mode import _unsafe_preserve_version_counter
 from torch.nn.modules import module as _module
 
-from dpft_tpu_torch.ops import deform_attn, window_attn
+from dpft_tpu_torch.ops import kernels
 from dpft_tpu_torch.utils import profiling
 
 GRAPH_DEVICES = ("cuda",)
@@ -127,9 +127,6 @@ MAX_GRAPHS = 4      # graphs a stage keeps
 _MAX_SEEN = 16      # keys a stage remembers having run once
 _CONSTANTS = (int, float, str, type(None), torch.dtype, torch.device)
 _PLAIN = (torch.Tensor, nn.Parameter)
-# The hand-written kernels' wrappers whose ``launches`` a replay advances.
-_COUNTED = (*deform_attn.LAUNCH_COUNTED.values(),
-            *window_attn.LAUNCH_COUNTED.values())
 _requires_grad = operator.attrgetter("requires_grad")
 
 # Bumped by every registration of a module, parameter or buffer anywhere:
@@ -263,10 +260,24 @@ def _sources(indexes: List[Any], tensors: List[torch.Tensor]
     return [x if i is None else x[i] for i, x in zip(indexes, tensors)]
 
 
-def _advance(launches: List[int], counts: Dict[str, int]) -> None:
-    """Counts a replay's launches of the counted wrappers and the program's
-    counts of its capture."""
-    for wrapper, n in zip(_COUNTED, launches):
+def _moved(before: Dict[str, int]) -> Tuple[Tuple[Callable, int], ...]:
+    """The counted wrappers whose launches moved since ``before``
+    (``kernels.launches()``), each with the launches it made."""
+    return tuple((w, w.launches - before.get(name, 0))
+                 for name, w in kernels.COUNTED.items()
+                 if w.launches != before.get(name, 0))
+
+
+def _restore(before: Dict[str, int]) -> None:
+    for name, w in kernels.COUNTED.items():
+        w.launches = before.get(name, 0)
+
+
+def _advance(launches: Tuple[Tuple[Callable, int], ...],
+             counts: Dict[str, int]) -> None:
+    """Counts a replay's launches of the counted wrappers (those its
+    capture moved) and the program's counts of its capture."""
+    for wrapper, n in launches:
         wrapper.launches += n
     for name, n in counts.items():
         profiling.count(name, n)
@@ -552,14 +563,14 @@ def _record(forward: Callable, module: nn.Module, spec: Any,
     """Captures the stage on the current stream with inputs of its own;
     ``_FAILED`` where that raises. The wrappers' launch counters read after
     it as before it; the program's counts of the capture go to a tally."""
-    before = [w.launches for w in _COUNTED]
+    before = kernels.launches()
     try:
         indexes, buffers, views = _inputs(tensors)
         args, kwargs = _unflatten(spec, iter(views))
         with profiling.tally() as counts:
             graph, result = _captured(
                 lambda: forward(module, *args, **kwargs))
-        launches = [w.launches - n for w, n in zip(_COUNTED, before)]
+        launches = _moved(before)
         outputs: List[torch.Tensor] = []
         out_spec = _flatten(result, outputs)
     except (RuntimeError, _Ungraphable) as exc:
@@ -567,8 +578,7 @@ def _record(forward: Callable, module: nn.Module, spec: Any,
                       f"the stage runs eagerly")
         return _FAILED
     finally:
-        for wrapper, n in zip(_COUNTED, before):
-            wrapper.launches = n
+        _restore(before)
     return _Graph(graph, indexes, buffers, outputs, out_spec, launches,
                   counts)
 
@@ -582,7 +592,7 @@ def _record_train(forward: Callable, module: nn.Module, spec: Any,
     own; ``_FAILED`` where either raises (a host sync raises before it
     reaches the driver). ``params``: the parameters that require grad.
     Counters as in ``_record``; the backward's own code counts nothing."""
-    before = [w.launches for w in _COUNTED]
+    before = kernels.launches()
     # The capture dispatches the forward's in-place updates (BatchNorm's
     # statistics) but executes none: the warm-up's graph, which saved those
     # tensors, must find them unchanged.
@@ -605,28 +615,25 @@ def _record_train(forward: Callable, module: nn.Module, spec: Any,
         device = tensors[0].device
         with _sync_debug("error", device), profiling.tally() as counts:
             graph, result = _captured(run_forward, None)
-        launches = [w.launches - n for w, n in zip(_COUNTED, before)]
+        launches = _moved(before)
         outputs: List[torch.Tensor] = []
         out_spec = _flatten(result, outputs)
         if not live:
             raise _Ungraphable("no output requires grad")
         grad_outputs = [torch.empty_like(t) for t in live]
-        for wrapper, n in zip(_COUNTED, before):
-            wrapper.launches = n
+        _restore(before)
         with _sync_debug("error", device), torch.autocast(
                 device.type, enabled=False):
             backward, grads = _captured(lambda: torch.autograd.grad(
                 live, leaves, grad_outputs, allow_unused=True),
                 graph.pool())
-        backward_launches = [w.launches - n
-                             for w, n in zip(_COUNTED, before)]
+        backward_launches = _moved(before)
     except (RuntimeError, _Ungraphable) as exc:
         warnings.warn(f"{type(module).__name__}: no CUDA graph of the "
                       f"train step ({exc}); the stage runs eagerly")
         return _FAILED
     finally:
-        for wrapper, n in zip(_COUNTED, before):
-            wrapper.launches = n
+        _restore(before)
         unchanged.__exit__()
     found = iter(grads)
     per_input = [next(found) if t.requires_grad else None for t in tensors]

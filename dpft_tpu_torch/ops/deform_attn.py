@@ -504,6 +504,7 @@ def _shape_array(spatial_shapes: Shapes):
     return (ctypes.c_int * len(flat))(*flat)
 
 
+@kernels.counted
 def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
              sampling_locations: torch.Tensor,
              attention_weights: torch.Tensor) -> torch.Tensor:
@@ -532,6 +533,7 @@ def msda_fwd(value: torch.Tensor, spatial_shapes: Shapes,
     return out
 
 
+@kernels.counted
 def msda_bwd(value: torch.Tensor, spatial_shapes: Shapes,
              sampling_locations: torch.Tensor,
              attention_weights: torch.Tensor, grad_out: torch.Tensor
@@ -1048,6 +1050,7 @@ def _launch_mm(wrapper, entry: str, val: torch.Tensor, pointers, table,
 _NO_COORDS = (None, None, None, 0, 0, 0)
 
 
+@kernels.counted
 def msda_mm_fwd(val: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 att: torch.Tensor, h: int, w: int,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -1072,6 +1075,7 @@ def msda_mm_fwd(val: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out
 
 
+@kernels.counted
 def msda_mm_bwd(val: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                 att: torch.Tensor, grad_out: torch.Tensor, h: int, w: int,
                 out: Optional[Tuple[torch.Tensor, ...]] = None
@@ -1230,15 +1234,3 @@ def msda_mm_bwd_group(value: torch.Tensor, levels, xy: torch.Tensor,
                     d_xy.data_ptr(), d_xy.data_ptr() + step,
                     d_att_t.data_ptr()), table, made, B, H, S, D)
     return out
-
-
-# Numbers of kernel launches since the last reset (chip_smoke.py reads them
-# to show that the main path went through the kernels).
-msda_fwd.launches = 0
-msda_bwd.launches = 0
-msda_mm_fwd.launches = 0
-msda_mm_bwd.launches = 0
-# The wrappers that count their launches, by name; a replay of a CUDA graph
-# advances them by the launches its capture made (models/graphs.py).
-LAUNCH_COUNTED = {w.__name__: w for w in (msda_fwd, msda_bwd, msda_mm_fwd,
-                                          msda_mm_bwd)}

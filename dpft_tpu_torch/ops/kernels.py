@@ -26,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -155,3 +155,29 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().dpft_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+# The Python wrappers of the kernels that count their launches, by name. A
+# replay of a CUDA graph adds the launches its capture made
+# (models/graphs.py).
+COUNTED: Dict[str, Callable] = {}
+
+
+def counted(wrapper: Callable) -> Callable:
+    """Registers ``wrapper`` under its name in ``COUNTED`` with
+    ``wrapper.launches = 0``; the wrapper adds 1 at each launch."""
+    wrapper.launches = 0
+    COUNTED[wrapper.__name__] = wrapper
+    return wrapper
+
+
+def launches() -> Dict[str, int]:
+    """The launches of every counted wrapper since its last reset, by
+    name."""
+    return {name: wrapper.launches for name, wrapper in COUNTED.items()}
+
+
+def reset_launches() -> None:
+    """Sets every counted wrapper's launches to 0."""
+    for wrapper in COUNTED.values():
+        wrapper.launches = 0

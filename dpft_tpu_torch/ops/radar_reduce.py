@@ -252,6 +252,7 @@ def _launch(entry: str, cube: torch.Tensor, out: torch.Tensor, *dims: int
 _COUNT_LOCK = threading.Lock()
 
 
+@kernels.counted
 def radar_reduce_ra(tesseract: torch.Tensor) -> torch.Tensor:
     """Launches ``radar_ra_sorted_kernel`` (37 elevation bins, K-Radar's:
     the medians by a sorting network in registers) or ``radar_ra_kernel``
@@ -282,6 +283,7 @@ def radar_reduce_ra(tesseract: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@kernels.counted
 def radar_reduce_ea(tesseract: torch.Tensor) -> torch.Tensor:
     """Launches ``radar_ea_kernel`` (``csrc/radar_reduce.cu``).
 
@@ -338,10 +340,3 @@ def _reduce_on_card(tesseract: torch.Tensor
     once for the two of them."""
     cube, _ = _check_cube("reduce_tesseract", tesseract.to(torch.float32))
     return radar_reduce_ra(cube), radar_reduce_ea(cube)
-
-
-# Numbers of wrapper calls that launched since the last reset (chip_smoke.py
-# reads them to show that the prepare path went through the kernels).
-radar_reduce_ra.launches = 0
-radar_reduce_ea.launches = 0
-LAUNCH_COUNTED = {w.__name__: w for w in (radar_reduce_ra, radar_reduce_ea)}

@@ -143,6 +143,7 @@ def _check(qkv: torch.Tensor, table: torch.Tensor, index: torch.Tensor,
             f"[0, {WINDOW}), a 16-byte aligned qkv; nothing was launched")
 
 
+@kernels.counted
 def window_attn_fwd(qkv: torch.Tensor, table: torch.Tensor,
                     index: torch.Tensor, heads: int, shift_h: int,
                     shift_w: int) -> torch.Tensor:
@@ -192,9 +193,3 @@ def _window_attn_fwd_fake(qkv, table, index, heads, shift_h, shift_w):
 @register_flop_formula(torch.ops.dpft.window_attn_fwd)
 def _window_attn_fwd_flops(qkv_shape, *_, **__) -> int:
     return window_attn_operations(qkv_shape)
-
-
-# Kernel launches since the last reset; a replay of a CUDA graph advances
-# it by the launches its capture made (models/graphs.py).
-window_attn_fwd.launches = 0
-LAUNCH_COUNTED = {"window_attn_fwd": window_attn_fwd}

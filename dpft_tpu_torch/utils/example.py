@@ -6,7 +6,7 @@
 smoke runs and tests of both packages see the same data.
 ``write_raw_kradar`` writes a raw K-Radar tree (the reference's on-disk
 layout) at any cube and image size, K-Radar's by default, for the prepare
-path of ``chip_smoke.py`` and of ``python -m dpft_tpu_torch.bench``.
+path of ``chip_smoke.py``.
 """
 
 import os

@@ -54,7 +54,7 @@ import math
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Iterable, Iterator, List
 from typing import Tuple, Union
 
 import numpy as np
@@ -84,42 +84,6 @@ def _drain(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-class _Clock:
-    """ms of the work submitted to ``device`` between ``start`` and
-    ``stop``: CUDA events on a card, ``time.perf_counter`` on the CPU.
-    ``stop`` waits for the device."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self._begin: Any = None
-
-    def start(self) -> None:
-        if self.device.type == "cuda":
-            self._begin = torch.cuda.Event(enable_timing=True)
-            self._begin.record()
-        else:
-            self._begin = time.perf_counter()
-
-    def stop(self) -> float:
-        if self.device.type == "cuda":
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            torch.cuda.synchronize(self.device)
-            return self._begin.elapsed_time(end)
-        return (time.perf_counter() - self._begin) * 1e3
-
-
-def _per_call_ms(fn: Callable, args: Sequence, repetitions: int,
-                 device: torch.device) -> np.ndarray:
-    clock = _Clock(device)
-    timings = np.zeros(repetitions)
-    for i in range(repetitions):
-        clock.start()
-        fn(*args)
-        timings[i] = clock.stop()
-    return timings
-
-
 def benchmark(fn: Callable, *args, device: Device, repetitions: int = 100,
               warmup: int = 10) -> Tuple[float, float]:
     """(mean_ms, std_ms) of ``fn(*args)`` over ``repetitions`` calls after
@@ -129,51 +93,25 @@ def benchmark(fn: Callable, *args, device: Device, repetitions: int = 100,
     on a card, ``time.perf_counter`` on the CPU (see the module docstring).
     """
     device = torch.device(device)
+    timings = np.zeros(repetitions)
     with _on(device):
         for _ in range(warmup):
             fn(*args)
         _drain(device)
-        timings = _per_call_ms(fn, args, repetitions, device)
-    return float(timings.mean()), float(timings.std(ddof=1))
-
-
-def benchmark_medians(fn: Callable, *args, device: Device,
-                      repetitions: int = 10, warmup: int = 3, runs: int = 5
-                      ) -> Tuple[float, float]:
-    """(median_of_medians_ms, half_spread_ms) over ``runs`` runs of
-    ``repetitions`` calls each, timed as in :func:`benchmark`: the median of
-    the runs' medians and half their min-max spread."""
-    device = torch.device(device)
-    with _on(device):
-        for _ in range(warmup):
-            fn(*args)
-        _drain(device)
-        medians = np.asarray([
-            float(np.median(_per_call_ms(fn, args, repetitions, device)))
-            for _ in range(runs)])
-    return (float(np.median(medians)),
-            float((medians.max() - medians.min()) / 2.0))
-
-
-def benchmark_pipelined(fn: Callable, argsets: Sequence[Sequence], *,
-                        device: Device, repetitions: int = 60,
-                        warmup: int = 6) -> float:
-    """ms per call with the calls enqueued back to back, with no fence
-    between them, cycling through ``argsets`` (distinct inputs, so no call
-    can reuse another's). One pair of CUDA events (``time.perf_counter`` on
-    the CPU) spans the whole loop; the result is that time over
-    ``repetitions``: the device's steady throughput when the host keeps
-    ahead of it, else the host's."""
-    device = torch.device(device)
-    with _on(device):
-        for i in range(max(warmup, len(argsets))):
-            fn(*argsets[i % len(argsets)])
-        _drain(device)
-        clock = _Clock(device)
-        clock.start()
         for i in range(repetitions):
-            fn(*argsets[i % len(argsets)])
-        return clock.stop() / repetitions
+            if device.type == "cuda":
+                begin = torch.cuda.Event(enable_timing=True)
+                begin.record()
+                fn(*args)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                torch.cuda.synchronize(device)
+                timings[i] = begin.elapsed_time(end)
+            else:
+                begin = time.perf_counter()
+                fn(*args)
+                timings[i] = (time.perf_counter() - begin) * 1e3
+    return float(timings.mean()), float(timings.std(ddof=1))
 
 
 def cost_analysis(fn: Callable, *args, **kwargs) -> Dict[str, int]:

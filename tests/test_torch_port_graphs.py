@@ -52,7 +52,7 @@ from dpft_tpu_torch.models.embeddings import MultiLevelSinusoidalEmbedding
 from dpft_tpu_torch.models.fusers import IMPFusion
 from dpft_tpu_torch.models.layers.common import init_parameters
 from dpft_tpu_torch.models.necks import FPN
-from dpft_tpu_torch.ops import deform_attn
+from dpft_tpu_torch.ops import deform_attn, kernels, radar_reduce, window_attn
 from dpft_tpu_torch.training.trainer import CentralizedTrainer
 from dpft_tpu_torch.utils import profiling
 from dpft_tpu_torch.utils.example import example_targets
@@ -151,7 +151,7 @@ class _Emulated:
         return ("emulated", id(self))
 
     def replay(self):
-        counted = [w.launches for w in graphs._COUNTED]
+        counted = kernels.launches()
         fresh = []
         # No Python ran: the graph's own counts.
         with profiling.tally(), torch.set_grad_enabled(self.grad):
@@ -159,8 +159,7 @@ class _Emulated:
         with torch.no_grad():
             for out, new in zip(self.outputs, fresh):
                 out.copy_(new)
-        for wrapper, n in zip(graphs._COUNTED, counted):  # no Python ran
-            wrapper.launches = n
+        graphs._restore(counted)  # no Python ran
 
 
 @pytest.fixture
@@ -407,6 +406,43 @@ def test_replays_count_the_wrapped_kernels_launches(cpu_graphs):
     # 5 calls of 2 launches: eager, warm-up (the capture counts none),
     # three replays.
     assert deform_attn.msda_fwd.launches - before == 10
+
+
+@pytest.mark.parametrize("module, name", [
+    (deform_attn, "msda_fwd"), (deform_attn, "msda_bwd"),
+    (deform_attn, "msda_mm_fwd"), (deform_attn, "msda_mm_bwd"),
+    (window_attn, "window_attn_fwd"), (radar_reduce, "radar_reduce_ra"),
+    (radar_reduce, "radar_reduce_ea")])
+def test_registry_holds_each_kernel_wrapper(module, name):
+    """The one list of launch-counted wrappers (``ops/kernels.py``) holds
+    the function its module exports, and its reset zeroes it."""
+    wrapper = getattr(module, name)
+    assert kernels.COUNTED[name] is wrapper
+    before = kernels.launches()
+    try:
+        wrapper.launches += 3
+        assert kernels.launches()[name] == before[name] + 3
+        kernels.reset_launches()
+        assert wrapper.launches == 0 == kernels.launches()[name]
+    finally:
+        for other, n in before.items():
+            kernels.COUNTED[other].launches = n
+
+
+def test_replays_advance_only_the_wrappers_their_capture_moved(cpu_graphs):
+    class Launching(nn.Module):
+        @graphs.stage
+        def forward(self, x):
+            window_attn.window_attn_fwd.launches += 1
+            return {"y": x + 1}
+
+    module, x = Launching().eval(), torch.ones(3)
+    with torch.inference_mode():
+        for _ in range(2):
+            module(x)
+    graph, = (g for g in module._graphs.graphs.values()
+              if isinstance(g, graphs._Graph))
+    assert graph.launches == ((window_attn.window_attn_fwd, 1),)
 
 
 def test_counters_and_no_capture_under_the_profiler(config, cpu_graphs):

@@ -90,8 +90,7 @@ def test_port_never_imports_jax():
                  "utils.config", "utils.device", "parallel.tp",
                  "ops.radar_reduce_native", "ops.nsga2", "utils.geometry",
                  "utils.project", "utils.data", "utils.visu",
-                 "utils.profiling", "utils.example", "bench",
-                 "bench_scaling"):
+                 "utils.profiling", "utils.example"):
         assert f"dpft_tpu_torch.{name}" in report["modules"], name
     assert report["leaked"] == []
 

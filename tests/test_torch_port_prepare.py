@@ -6,6 +6,12 @@ through ``python -m dpft_tpu_torch.prepare --device cpu`` (the plain PyTorch
 reduction). Both must write the same directory tree; every file but the
 radar planes byte for byte, ``ra.npy`` / ``ea.npy`` within rtol 3e-4 /
 atol 3e-2 (float32 ``log10`` and the order of the sums differ).
+
+The processor settles the radar reduction's route from ``use_device``,
+``prepare_device`` and ``device`` once, and refuses an unknown
+``prepare_device`` before it reads a file; every route that runs on the
+CPU gives the NumPy reduction's planes. ``utils/example.py:
+write_raw_kradar`` writes the fixture's raw layout.
 """
 
 import json
@@ -16,10 +22,15 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
+from chip_smoke import SAMPLE_FILES
+from dpft_tpu_torch import prepare as prepare_cli
 from dpft_tpu_torch.data import prepare as prepare_dataset
-from kradar_fixture import (TESSERACT_SHAPE, TEST_IDS, TRAIN_IDS, VAL_IDS,
-                            base_config, make_raw_kradar)
+from dpft_tpu_torch.ops.radar_reduce import reduce_tesseract_np
+from dpft_tpu_torch.utils.example import write_raw_kradar
+from kradar_fixture import (IMG_H, IMG_W, TESSERACT_SHAPE, TEST_IDS,
+                            TRAIN_IDS, VAL_IDS, base_config, make_raw_kradar)
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TOL = dict(rtol=3e-4, atol=3e-2)
@@ -107,21 +118,69 @@ def test_numpy_path_writes_the_same_planes_exactly(prepared, tmp_path):
                 np.load(osp.join(want, split, "10", sample, name)))
 
 
-def test_prepare_device_cpu_overrides_the_device():
-    config = base_config()
-    config["computing"]["device"] = "cuda"
-    config["data"]["prepare_device"] = "cpu"
-    assert prepare_dataset("kradar", config).device.type == "cpu"
+# (use_device, prepare_device, device) -> (route, device type). "cpu"
+# overrides the device; "native" needs none, whatever the others say.
+ROUTES = [
+    ((True, "default", "cpu"), ("device", "cpu")),
+    ((True, "default", "cuda"), ("device", "cuda")),
+    ((True, "cpu", "cuda"), ("device", "cpu")),
+    ((True, "native", "cuda"), ("native", None)),
+    ((False, "default", "cuda"), ("numpy", None)),
+    ((False, "cpu", "cpu"), ("numpy", None)),
+    ((False, "native", "cpu"), ("native", None)),
+]
 
 
-def test_prepare_device_native_is_not_ported():
-    """The name predates the port of the host reduction: ``"native"`` now
-    builds a processor that needs no device, whatever ``device`` says
-    (test_torch_port_radar_native.py holds its planes)."""
+@pytest.fixture(scope="module")
+def tesseract_mat(tmp_path_factory):
+    from scipy.io import savemat
+
+    path = str(tmp_path_factory.mktemp("route") / "tesseract.mat")
+    cube = np.random.default_rng(5).uniform(1e8, 1e12, size=TESSERACT_SHAPE)
+    savemat(path, {"arrDREA": cube})
+    return path
+
+
+@pytest.mark.parametrize("keys, want", ROUTES,
+                         ids=["-".join(map(str, k)) for k, _ in ROUTES])
+def test_prepare_route(keys, want, tesseract_mat, monkeypatch):
+    """One route per combination of the keys; where it runs on the CPU its
+    planes are the NumPy reduction's (exactly on the NumPy route). A card
+    route is only chosen here: ``torch.cuda.is_available`` is patched to
+    say there is one."""
+    use_device, prepare_device, device = keys
     config = base_config()
-    config["computing"]["device"] = "cuda"
-    config["data"]["prepare_device"] = "native"
-    assert prepare_dataset("kradar", config).device is None
+    config["computing"]["device"] = device
+    config["data"]["use_device"] = use_device
+    config["data"]["prepare_device"] = prepare_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    processor = prepare_dataset("kradar", config)
+    got = (processor.route,
+           processor.device and processor.device.type)
+    assert got == want
+    if want[1] == "cuda":
+        return
+    from scipy.io import loadmat
+
+    planes = processor.get_radar_data(tesseract_mat)
+    cube = loadmat(tesseract_mat)["arrDREA"].astype(np.float32)
+    for x, y in zip(planes, reduce_tesseract_np(cube)):
+        y = y.astype(np.float32)
+        assert x.dtype == np.float32 and x.shape == y.shape
+        if want[0] == "numpy":
+            np.testing.assert_array_equal(x, y)
+        else:
+            np.testing.assert_allclose(x, y, **TOL)
+
+
+@pytest.mark.parametrize("prepare_device", ["cuda", "Native", ""])
+def test_unknown_prepare_device_raises(prepare_device):
+    """At construction, before ``prepare`` reads any file."""
+    config = base_config()
+    config["computing"]["device"] = "cpu"
+    config["data"]["prepare_device"] = prepare_device
+    with pytest.raises(ValueError, match="'default', 'cpu', 'native'"):
+        prepare_dataset("kradar", config)
 
 
 def test_unknown_dataset_raises():
@@ -187,3 +246,38 @@ def test_device_path_casts_on_the_device_not_on_the_host(prepared,
     assert casts == [np.dtype(np.float32)] and len(seen) == 1
     np.testing.assert_allclose(ra, ra_np, **TOL)
     np.testing.assert_allclose(ea, ea_np, **TOL)
+
+
+def test_raw_tree_has_the_fixture_layout_and_prepares(tmp_path):
+    """``write_raw_kradar`` at the fixture's shapes writes the files of
+    ``tests/kradar_fixture.py`` under the same names, and the port's
+    prepare CLI turns them into the processed tree."""
+    ids = (*TRAIN_IDS, *VAL_IDS, *TEST_IDS)
+    src = write_raw_kradar(str(tmp_path / "ours"), ids,
+                           cube_shape=TESSERACT_SHAPE,
+                           image_hw=(IMG_H, IMG_W), seed=3)
+    theirs = make_raw_kradar(str(tmp_path / "theirs"))
+
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    assert files(src) == files(theirs)
+    from scipy.io import loadmat
+    mat = os.path.join(src, "10", "radar_tesseract", "tesseract_00027.mat")
+    cube = loadmat(mat)["arrDREA"]
+    assert cube.shape == TESSERACT_SHAPE and cube.dtype == np.float64
+    assert cube.min() > 0
+
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump(base_config(), f)
+    dst = str(tmp_path / "processed")
+    prepare_cli.main(src, cfg, dst, device="cpu")
+    for split, split_ids in (("train", TRAIN_IDS), ("val", VAL_IDS),
+                             ("test", TEST_IDS)):
+        for sid in split_ids:
+            out = os.path.join(dst, split, "10", sid)
+            assert sorted(os.listdir(out)) == sorted(SAMPLE_FILES)
+            assert np.load(os.path.join(out, "ra.npy")).shape == (
+                TESSERACT_SHAPE[1], TESSERACT_SHAPE[3], 6)

@@ -4,11 +4,9 @@
 ``dpft_tpu/utils/profiling.py``. On the CPU its timing functions read
 ``time.perf_counter`` (on the card, CUDA events, which only the card can
 run). Here a scripted clock drives both modules' arithmetic: the port's
-``benchmark`` gives the mean and the sample std (ddof=1), its
-``benchmark_medians`` the median of the runs' medians and half their
-spread, its ``benchmark_pipelined`` the loop's time over the calls, each
-equal to the JAX function's on the same recorded times (the JAX readback
-round trip scripted to 0 ms, which it subtracts). The evaluator's latency
+``benchmark`` gives the mean and the sample std (ddof=1), equal to the JAX
+function's on the same recorded times (the JAX readback round trip
+scripted to 0 ms, which it subtracts). The evaluator's latency
 goes through ``benchmark``: its std is the JAX package's, where it used to
 be numpy's ddof=0 std. ``parameter_count`` of the tiny model equals JAX's
 on the flax tree of the same weights; ``cost_analysis`` equals the
@@ -95,46 +93,6 @@ def test_benchmark_is_the_jax_arithmetic(monkeypatch):
     times = np.array([(b - a) * 1e3 for a, b in
                       zip(*[iter(_pairs(DURATIONS))] * 2)])
     assert std == np.std(times, ddof=1) != np.std(times)
-
-
-def test_benchmark_medians_is_the_jax_arithmetic(monkeypatch):
-    runs, reps = 3, 4
-    rng = np.random.default_rng(3)
-    durations = [list(0.01 + 0.01 * rng.random(reps)) for _ in range(runs)]
-    port = [r for run in durations for r in _pairs(run)]
-    monkeypatch.setattr(profiling, "time", ScriptedClock(port))
-    fn = Calls()
-    got = profiling.benchmark_medians(fn, torch.ones(2), device="cpu",
-                                      repetitions=reps, warmup=2, runs=runs)
-    assert fn.n == 2 + runs * reps
-
-    scripted = [r for run in durations for r in RTT_ZERO + _pairs(run)]
-    monkeypatch.setattr(jax_profiling, "time", ScriptedClock(scripted))
-    want = jax_profiling.benchmark_medians(jnp.sin, jnp.ones(2),
-                                           repetitions=reps, warmup=2,
-                                           runs=runs)
-    assert got == want
-    medians = [np.median([(b - a) * 1e3 for a, b in
-                          zip(*[iter(_pairs(run))] * 2)])
-               for run in durations]
-    assert got == (np.median(medians), (max(medians) - min(medians)) / 2)
-
-
-def test_benchmark_pipelined_is_the_jax_arithmetic(monkeypatch):
-    # 0.75 s over 4 calls: exact in binary, so both orders of the
-    # arithmetic give the same bits.
-    monkeypatch.setattr(profiling, "time", ScriptedClock([10.0, 10.75]))
-    fn = Calls()
-    argsets = [(torch.full((2,), float(i)),) for i in range(3)]
-    got = profiling.benchmark_pipelined(fn, argsets, device="cpu",
-                                        repetitions=4, warmup=2)
-    assert fn.n == 3 + 4  # warm-up covers every argset once
-
-    monkeypatch.setattr(jax_profiling, "time", ScriptedClock([10.0, 10.75]))
-    want = jax_profiling.benchmark_pipelined(
-        jnp.sin, [(jnp.full((2,), float(i)),) for i in range(3)],
-        repetitions=4, warmup=2)
-    assert got == want == 187.5
 
 
 class _Scale(torch.nn.Module):
