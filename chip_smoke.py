@@ -21,13 +21,17 @@ not 0:
    memory at B=1 and B=4 in f32 and bf16.
    The same forward's FLOPs (the evaluator's count) give the achieved
    TFLOP/s of each case. A forward or a train step with a swapped MSDA
-   core runs under ``_Eager``, so that no stage replays a graph captured
+   core runs with every stage eager (a forward under ``_no_graphs``, a
+   train step under ``_Eager``), so that no stage replays a graph captured
    with the kernels or captures one of the swapped core (train steps
-   replay graphs too, models/graphs.py).
+   replay graphs too, models/graphs.py); a forward's ResNet trunks fold
+   their BatchNorms on both sides (models/backbones/resnet.py).
 4b. CUDA graphs (``phase_graphs``): the eval forward's stages
    (models/graphs.py) on a copy of the flagship and on
    config/kradar_radar.json at B=1 and B=4 in f32: replays bit-equal to
-   the eager forward under ``inference_mode`` and ``no_grad``, held
+   the eager forward under ``inference_mode`` and ``no_grad`` (both with
+   the ResNet trunks' BatchNorm folded, models/backbones/resnet.py) and
+   within 1e-5 of the plain forward (under ``_Eager``, unfolded), held
    outputs unchanged by the next call, exact ``msda_fwd`` launches per
    replayed forward, in-place weight updates read, graphs dropped after
    ``.to()`` and ``load_state_dict(assign=True)``, FLOPs unchanged; the
@@ -534,12 +538,28 @@ class _Eager(torch.overrides.TorchFunctionMode):
 
 
 @contextlib.contextmanager
+def _no_graphs():
+    """Every stage eager (``models/graphs.py``) and nothing else changed:
+    unlike under ``_Eager``, the ResNet trunks of an eval forward fold
+    their BatchNorms as a replay does (``models/backbones/resnet.py``)."""
+    from dpft_tpu_torch.models import graphs
+
+    saved = graphs.GRAPH_DEVICES
+    graphs.GRAPH_DEVICES = ()
+    try:
+        yield
+    finally:
+        graphs.GRAPH_DEVICES = saved
+
+
+@contextlib.contextmanager
 def _plain_core_eager():
     """The layer's MSDA core swapped for the plain one in this process,
     every Swin block on its plain attention, and every stage held eager
-    (``_Eager``): a replay would run the kernels that its capture saw, not
-    the swapped core. Every eval forward on a swapped core goes through
-    here."""
+    (``_no_graphs``): a replay would run the kernels that its capture saw,
+    not the swapped core. The ResNet trunks fold as on the kernels' side,
+    so only the swapped cores differ. Every eval forward on a swapped core
+    goes through here."""
     import dpft_tpu_torch.models.layers.ms_deform_attn as msda_layer
     from dpft_tpu_torch.models.backbones import swin
     from dpft_tpu_torch.ops import deform_attn as da
@@ -548,7 +568,7 @@ def _plain_core_eager():
     msda_layer.ms_deform_attn_core = _plain_core
     swin.fused = lambda qkv: False
     try:
-        with _Eager():
+        with _no_graphs():
             yield
     finally:
         msda_layer.ms_deform_attn_core = da.ms_deform_attn_core
@@ -875,8 +895,10 @@ def phase_graphs(config, model):
     """The eval forward's stages as CUDA graphs (``models/graphs.py``), on
     a copy of the flagship and on config/kradar_radar.json, at B=1 and B=4
     in float32. Held: every stage replays from the third call of a key on,
-    bit-equal to the eager forward (held eager by ``_Eager``) under
-    ``inference_mode`` and ``no_grad``, with 12 (8) ``msda_fwd`` launches
+    bit-equal to the eager forward (graphs off, the ResNet trunks folded as
+    in a replay) under ``inference_mode`` and ``no_grad``, and within 1e-5
+    of each output's largest element of the plain forward (``_Eager``,
+    which also keeps BatchNorm unfolded), with 12 (8) ``msda_fwd`` launches
     counted per forward; outputs held from one call are unchanged by the
     next; after an in-place update of every weight a replay gives the
     eager forward of the new weights; after ``.to()`` (cpu and back) and
@@ -884,8 +906,7 @@ def phase_graphs(config, model):
     filled with NaN, the graphs are dropped, the outputs are the eager
     forward's and the stages capture again; FLOPs by the evaluator and by
     hooks are the forward's (155,427,456,252 / 6,091,105,532 at B=1).
-    Printed: ms per forward on the host clock, replayed and eager (the
-    latter slowed by ``_Eager``'s Python call per operation)."""
+    Printed: ms per forward on the host clock, replayed and eager."""
     import copy
 
     from dpft_tpu_torch.evaluation.evaluator import forward_flops
@@ -904,6 +925,10 @@ def phase_graphs(config, model):
         return {k: v.clone() for k, v in out.items()}
 
     def eager(net, batch):
+        with _no_graphs():
+            return net(batch)
+
+    def plain(net, batch):
         with _Eager():
             return net(batch)
 
@@ -929,6 +954,9 @@ def phase_graphs(config, model):
                 _held_equal(f"{label} replay of other inputs", other,
                             eager(net, b))
                 _held_equal(f"{label} held outputs", held, kept)
+                for key, value in plain(net, a).items():
+                    _hold(f"[graphs] {label} replay {key} against the plain "
+                          f"forward", held[key], value, TOL[torch.float32])
             want = cfg["model"]["fuser"]["i_iter"] * views
             if launches != want:
                 raise AssertionError(f"[graphs] {label}: {launches} msda_fwd "
@@ -952,7 +980,7 @@ def phase_graphs(config, model):
                   f"eager under inference_mode and no_grad, held outputs "
                   f"unchanged, {launches} msda_fwd launches per forward; "
                   f"host clock {times['replayed']:.2f} ms per forward "
-                  f"replayed, {times['eager']:.2f} eager (under _Eager)")
+                  f"replayed, {times['eager']:.2f} eager")
 
         views = len(cfg["model"]["inputs"])
         a = _to_cuda(example_batch(cfg, B=1, cam_hw=(512, 910)))

@@ -28,7 +28,9 @@ Spans and counters (no counterpart in the JAX package). The program opens
 where the host waits for the card (``dpft.host_syncs``), at each call of
 a graphed stage (``GRAPH_REPLAYS`` / ``_CAPTURES`` / ``_EAGER`` /
 ``_BACKWARD_REPLAYS`` below) and
-at each Swin block's window attention (``WINDOW_ATTN_FUSED`` / ``_PLAIN``).
+at each Swin block's window attention (``WINDOW_ATTN_FUSED`` / ``_PLAIN``)
+and at each ResNet trunk's call (``BN_FOLD_FOLDED`` / ``_PLAIN`` /
+``_REFOLDS``).
 Both record only while a
 ``torch.profiler`` records on the calling thread (``trace`` below, or any
 other profiler window); otherwise a span is one check and a shared
@@ -320,6 +322,13 @@ GRAPH_BACKWARD_REPLAYS = "dpft.graph.backward_replays"
 # ``dpft::window_attn_fwd`` and calls through the plain operations.
 WINDOW_ATTN_FUSED = "dpft.window_attn.fused"
 WINDOW_ATTN_PLAIN = "dpft.window_attn.plain"
+# Counters of the ResNet trunks' conv -> BatchNorm pairs
+# (``models/backbones/resnet.py``), per pair of a call on the card: run as
+# one convolution with the BatchNorm folded in, run as a convolution and a
+# BatchNorm; and per pair folded again (outside any graph, before a call).
+BN_FOLD_FOLDED = "dpft.bn_fold.folded"
+BN_FOLD_PLAIN = "dpft.bn_fold.plain"
+BN_FOLD_REFOLDS = "dpft.bn_fold.refolds"
 
 
 def count(name: str, n: int = 1) -> None:

@@ -17,6 +17,15 @@ the card; every test here skips without one.
 - A stage whose forward makes the host wait for the card is not captured;
   one whose backward does fails its capture before the driver sees the
   sync. Both run eagerly, and later captures of the process still work.
+- BatchNorm folded into the ResNet trunks' convolutions
+  (``models/backbones/resnet.py``), on the flagship at B=1 in eval with
+  drawn running statistics: the folded forward, eager and replayed, within
+  1e-5 of each output's largest element of the plain path (the same model
+  under a mode that changes no operation, ``_Plain``), replay bit-equal to
+  eager, every pair counted folded and none folded again in a steady
+  call; the same after train steps whose replays moved BatchNorm's
+  statistics without moving their versions, and after a
+  ``load_state_dict`` between two replays in eval.
 
 Run with ``python -m pytest tests/test_torch_port_graphs_card.py -m card``
 on a machine with a card.
@@ -88,6 +97,54 @@ def equal(what, got, want):
         if a is not None:
             assert torch.equal(a, b), f"{what}: {k} differs by " \
                 f"{(a.double() - b.double()).abs().max().item():.3e}"
+
+
+class _Plain(torch.overrides.TorchFunctionMode):
+    """A mode that changes no operation. Under it every stage runs eagerly
+    and the ResNet trunks run their BatchNorms unfolded."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+FOLDED_PAIRS = 104 + 2 * 53   # the flagship's ResNet-101 and ResNet-50s
+
+
+def near(what, got, want, tol=1e-5):
+    """Every output within ``tol`` of its largest element of ``want``."""
+    assert got.keys() == want.keys(), what
+    for k in want:
+        scale = want[k].abs().max().item()
+        err = (got[k] - want[k]).abs().max().item()
+        assert err <= tol * scale, f"{what}: {k} differs by {err:.3e} " \
+            f"of {scale:.3e}"
+
+
+def drawn_statistics(model, seed=3):
+    """BatchNorm weights, biases and running statistics drawn away from
+    their initial values, so that a fold does real work."""
+    g = torch.Generator(device=next(model.parameters()).device)
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.2, 0.2, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.1, 0.1, generator=g)
+    return model
+
+
+def fold_counts(run):
+    """``run()`` in a profiler window; its result and the counts of
+    ``dpft.bn_fold.*``."""
+    from torch.profiler import ProfilerActivity, profile
+    from dpft_tpu_torch.utils import profiling
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = run()
+    return out, {k: v for k, v in profiling.counters().items()
+                 if k.startswith("dpft.bn_fold.")}
 
 
 def grads(model):
@@ -239,3 +296,90 @@ def test_a_stage_that_syncs_runs_eagerly(card, where):
     assert train_graphs(other) == 1
     assert torch.equal(other.w.grad, 3 * 2 * x)
     torch.rand(4, device=card)
+
+
+def served(cfg, card):
+    return to_device(example_batch(cfg, B=1, cam_hw=(512, 910), seed=0),
+                     card)
+
+
+@pytest.mark.card
+def test_the_flagship_b1_folded_forward_against_the_plain_path(card):
+    cfg = config()
+    model = drawn_statistics(registry.build(cfg["model"]["name"], cfg,
+                                            device=card, seed=0)).eval()
+    batch = served(cfg, card)
+    with torch.inference_mode():
+        with eager_stages():
+            eager = model(batch)
+        for _ in range(3):
+            replayed = model(batch)
+        again, counted = fold_counts(lambda: model(batch))
+        with _Plain():
+            plain = model(batch)
+    equal("replayed against eager, both folded", replayed, eager)
+    equal("a later replay", again, eager)
+    near("folded against plain", eager, plain)
+    assert counted == {"dpft.bn_fold.folded": FOLDED_PAIRS}, counted
+
+
+@pytest.mark.card
+def test_the_fold_after_replayed_train_steps(card):
+    """Steps 1-2 run eagerly (step 2 captures); the trunks fold in an eval
+    forward after them; steps 3-5 replay, moving BatchNorm's statistics
+    inside the graphs without moving their versions (no optimizer step:
+    the weights stay). The next eval forward must fold them again."""
+    cfg = config()
+    trainer = CentralizedTrainer.from_config(cfg)
+    model = drawn_statistics(registry.build(cfg["model"]["name"], cfg,
+                                            device=card, seed=0))
+    batch = served(cfg, card)
+    stats = []
+    for step in range(5):
+        if step == 2:
+            with torch.inference_mode():
+                model.eval()(batch)
+            stats.append([b.clone() for b in model.buffers()])
+        train = to_device(example_batch(cfg, B=4, cam_hw=(512, 910),
+                                        seed=step % 2), card)
+        targets = to_device(example_targets(cfg, B=4, seed=step), card)
+        trainer.train_step(model, train, targets)
+        model.zero_grad(set_to_none=True)
+    assert train_graphs(model) == STAGES
+    assert any(not torch.equal(a, b)
+               for a, b in zip(stats[0], model.buffers()))
+    model.eval()
+    with torch.inference_mode():
+        got, counted = fold_counts(lambda: model(batch))
+        for _ in range(2):
+            replayed = model(batch)
+        with _Plain():
+            plain = model(batch)
+    near("folded after replayed steps against plain", got, plain)
+    equal("replayed after the steps", replayed, got)
+    assert counted == {"dpft.bn_fold.folded": FOLDED_PAIRS,
+                       "dpft.bn_fold.refolds": FOLDED_PAIRS}, counted
+
+
+@pytest.mark.card
+def test_load_state_dict_between_two_replays(card):
+    cfg = config()
+    model = drawn_statistics(registry.build(cfg["model"]["name"], cfg,
+                                            device=card, seed=0)).eval()
+    batch = served(cfg, card)
+    with torch.inference_mode():
+        for _ in range(3):
+            before = model(batch)
+    model.load_state_dict({k: v * 1.01 if v.is_floating_point() else v
+                           for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        got, counted = fold_counts(lambda: model(batch))
+        with eager_stages():
+            eager = model(batch)
+        with _Plain():
+            plain = model(batch)
+    assert counted == {"dpft.bn_fold.folded": FOLDED_PAIRS,
+                       "dpft.bn_fold.refolds": FOLDED_PAIRS}, counted
+    equal("the replay after load_state_dict", got, eager)
+    near("the replay after load_state_dict against plain", got, plain)
+    assert any(not torch.equal(got[k], before[k]) for k in got)
